@@ -1,13 +1,15 @@
-"""collision_tpu — a TPU-native broad-phase collision-detection framework.
+"""collision_tpu — a broad-phase collision-detection library in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild with the capabilities of the
+A from-scratch JAX/XLA rebuild with the capabilities of the
 kwohlfahrt/collision OpenCL library: given N sphere centers and radii, compute
-the exact set of strictly-overlapping pairs via scene-bounds reduction →
-30-bit Morton encoding → stable radix sort → Karras LBVH construction →
-level-synchronous AABB refit → lockstep BVH traversal with count-then-fill
-pair compaction, all inside one jitted step. The reference's standalone
-primitives (prefix scan, key/value radix sort, min/max and sum reductions,
-gather/scatter, sorted-run offsets) are provided as TPU-native ops.
+the exact set of strictly-overlapping pairs inside one jitted step — by the
+column pipeline (column sort → candidate runs → exact candidate pass →
+count-then-fill emission), the dense grid stencil (counts), or the
+reference's own architecture (scene-bounds reduction → 30-bit Morton
+encoding → stable sort → Karras LBVH construction → level-synchronous AABB
+refit → lockstep BVH traversal with count-then-fill pair compaction). The
+reference's standalone primitives (prefix scan, key/value sort, min/max and
+sum reductions, gather/scatter, sorted-run offsets) are provided as jnp ops.
 
 Unlike the reference (whose ``collision/__init__.py`` is empty and forces
 submodule imports), the public surface is re-exported here.
@@ -18,12 +20,9 @@ from .collider import (
     CollisionResult,
     collide,
     collide_exact,
-    interpret_kernels,
 )
-from .columns import ColumnPlan, default_column_config, plan_columns
-from .slabs import SlabPlan, default_slab_config, plan_slabs
-from .fill import candidate_count, mask_fill, run_fill
-from .hetero import default_nb, hetero_collide
+from .columns import default_column_config
+from .fill import candidate_count, run_fill
 from .grid import GridCounts, build_grid, grid_count
 from .sim import simulate
 from .lbvh import LBVH, NO_NODE, build, leaf_bounds, refit
@@ -64,18 +63,9 @@ __all__ = [
     "CollisionResult",
     "collide",
     "collide_exact",
-    "interpret_kernels",
-    "ColumnPlan",
     "default_column_config",
-    "plan_columns",
-    "SlabPlan",
-    "default_slab_config",
-    "plan_slabs",
     "candidate_count",
-    "mask_fill",
     "run_fill",
-    "default_nb",
-    "hetero_collide",
     "GridCounts",
     "build_grid",
     "grid_count",

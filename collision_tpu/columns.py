@@ -1,100 +1,36 @@
-"""Column-sweep broad phase: z-sorted xy-columns + banded window tests.
+"""Column sort: spheres keyed by xy-column and quantized z.
 
-Round-2 redesign of the TPU fast path. The round-1 grid engine binned
-spheres into fixed-capacity z-cells and ran dense [cap, cap] tile tests —
-exact, but padding (cap is sized ~5 sigma above mean occupancy) wastes
-(cap/occ)^2 of the VPU work, and at coarse grids the cells are far wider
-than the 2*r_max interaction radius, so almost every tested pair is
-rejected. Measured on v5e: the 1M-sphere count sweep is pure VPU compute
-(per-grid-step overhead is ~5 us, not the suspected 30 us), so the only
-lever is doing fewer tile tests.
+The column pipeline (fill.py) bins spheres in x/y only, into columns at
+least 2*r_max wide, and keeps z *continuous*: spheres are sorted once by the
+composite key ``column_id << zbits | quantize(z)``, so each column is a
+z-sorted contiguous run of the sorted stream. Every colliding pair then
+lies in the same or an adjacent column, and its partner's z lies inside a
+conservative window that one ``searchsorted`` finds. The 5 half-stencil
+column offsets (self + (0,1) + (1,-1..1)) visit each unordered column pair
+once — the analog of the reference's right_edge dedup rule,
+collision.cl:198-200.
 
-This engine bins in x/y only (columns at least 2*r_max wide) and keeps z
-*continuous*: spheres are sorted once by the composite key
-``column_id << zbits | quantize(z)``, so each column is a z-sorted
-contiguous run of the sorted stream. For every 64-sphere chunk of a column
-the exact z-window of possible partners in each of the 5 half-stencil
-neighbor columns (self + (0,1) + (1,-1..1); each unordered column pair
-visited once — the analog of the reference's right_edge dedup rule,
-collision.cl:198-200) is precomputed with a composite-key searchsorted.
-The Pallas kernel (kernels/sweep.py) then tests each chunk only against
-its windows, row-by-row in a dynamic loop — work proportional to the true
-number of z-plausible candidates, with no per-cell padding at all.
-
-Correctness never depends on the knobs: windows are conservative supersets
-(quantization is monotone, so ``quantize(z) >= quantize(lo)`` whenever
-``z >= lo``), the in-kernel AABB test is exact in f32, and a chunk's
-window lanes beyond its true end fail the exact z test. The only failure
-modes are capacity overflows (column > col_capacity, slab > slab_rows),
-which are *detected* host-side via returned stats — never a silent wrong
-answer — mirroring the reference's count-past-capacity retry contract
-(collision.cl:203-207).
-
-Reference parity targets: strict AABB overlap semantics
-(collision.cl:164-166), unordered unique pairs of original ids
-(collision.cl:198-215).
+Correctness never depends on the grid: quantization is monotone, so
+``quantize(z) >= quantize(lo)`` whenever ``z >= lo`` and windows are exact
+supersets, and the candidate test itself is exact at input precision.
 """
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .ops.offset import sorted_bucket_starts
-from .utils import round_up
-
 #: xy half-stencil: (dx, dy) column offsets covering each unordered column
 #: pair exactly once; the self offset pairs with a j > i index constraint.
 COLUMN_OFFSETS = ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1))
 
-#: Spheres per a-chunk (one chunk = one banded tile row group).
-CHUNK = 64
 
-#: Sphere rows per stream row (lanes).
-LANE = 128
-
-
-class ColumnPlan(NamedTuple):
-    """Everything the sweep kernel needs, plus host-retry stats."""
-
-    stream: jax.Array      # [Rp, 8, 128] f32: xlo ylo zlo xhi yhi zhi id pad
-    starts: jax.Array      # int32[(gxy+1)*gxy + 1] column start indices
-    slab_r0: jax.Array     # int32[gxy + 1] first stream row of each x-slab
-    w0: jax.Array          # int32[gxy, gy*mc*5] window starts (global)
-    wcap: jax.Array        # int32[gxy, gy*mc*5] window lengths
-    ok: jax.Array          # bool: capacities held (result exact iff True)
-    max_col: jax.Array     # int32 stats for host retry
-    max_slab_rows: jax.Array
-    rows_needed: jax.Array  # int32: max stream rows any window spans
-    rows_rolled: jax.Array  # int32: max ceil(window/128) — the rolled
-    #                         count kernel's requirement (alignment-free)
-    n: int
-    gxy: int
-    mc: int
-    slab_rows: int
-
-
-def default_column_config(n, target_occupancy=1500, gxy=None):
-    """(gxy, col_capacity, slab_rows) from n.
-
-    Columns of ~1500 spheres balance chunk count (a-side overhead) against
-    window search resolution; capacities are sized ~6 Poisson sigmas above
-    the uniform mean so uniform scenes never trip the retry. Pass ``gxy``
-    to size the capacities for a caller-chosen grid instead (the retry
-    chain escalates gxy to narrow clustered scenes' windows — cells clamp
-    at 2*r_max, so a finer grid is always correct, collider._retry_exact).
-    """
-    if gxy is None:
-        gxy = int(np.clip(round((n / target_occupancy) ** 0.5), 1, 64))
-    occ = n / (gxy * gxy)
-    col_cap = int(round_up(int(occ + 6 * occ ** 0.5 + 16), CHUNK))
-    col_cap = min(col_cap, int(round_up(n, CHUNK)))
-    slab = n / gxy
-    slab_rows = int((slab + 6 * slab ** 0.5 + 16) // LANE) + 4
-    slab_rows = min(slab_rows, n // LANE + 4)
-    return gxy, col_cap, slab_rows
+def default_column_config(n, target_occupancy=1500):
+    """Columns per xy axis (``gxy``) for ~``target_occupancy`` spheres per
+    column. Columns clamp at 2*r_max wide, so any gxy is correct; this
+    one balances the number of candidate runs against window length."""
+    return int(np.clip(round((n / target_occupancy) ** 0.5), 1, 64))
 
 
 def _zbits(gxy):
@@ -110,14 +46,6 @@ def _quantize(z, lo, scale, zmax):
     # the column bits of the packed sort key.
     q = jnp.maximum((z - lo) * scale, 0.0)
     return jnp.minimum(q.astype(jnp.uint32), jnp.uint32(zmax))
-
-
-def plan_columns(coords, radii, gxy, col_capacity, slab_rows):
-    """Sort by (column, z) and precompute the sweep kernel's inputs."""
-    arrays = _plan_columns(coords, radii, gxy, col_capacity, slab_rows)
-    mc = -(-col_capacity // CHUNK)
-    return ColumnPlan(*arrays, n=coords.shape[0], gxy=gxy, mc=mc,
-                      slab_rows=slab_rows)
 
 
 class ColumnSort(NamedTuple):
@@ -171,146 +99,3 @@ def _column_sort(coords, radii, gxy):
         num_keys=1, is_stable=True,
     )
     return ColumnSort(key_s, ids_s, x_s, y_s, z_s, r_s, lo_s, zscale, r_max)
-
-
-@partial(jax.jit, static_argnames=("gxy", "col_capacity", "slab_rows"))
-def _plan_columns(coords, radii, gxy, col_capacity, slab_rows):
-    coords = jnp.asarray(coords, jnp.float32)
-    radii = jnp.asarray(radii, jnp.float32)
-    n = coords.shape[0]
-    zbits = _zbits(gxy)
-    zmax = (1 << zbits) - 1
-    mc = -(-col_capacity // CHUNK)
-    ncols = gxy * gxy
-    ncols_ext = (gxy + 1) * gxy
-
-    cs = _column_sort(coords, radii, gxy)
-    key_s, ids_s = cs.key_s, cs.ids_s
-    x_s, y_s, z_s, r_s = cs.x_s, cs.y_s, cs.z_s, cs.r_s
-    lo_s, zscale, r_max = cs.lo_s, cs.zscale, cs.r_max
-    zext = zmax / zscale
-    col_s = (key_s >> zbits).astype(jnp.uint32)
-
-    # Column starts over the extended id range (the pad x-row gxy stays
-    # empty: its starts all equal n, which makes the kernel's dx=1 offsets
-    # at the last x-row vacuous with zero special-casing).
-    buckets = jnp.arange(ncols_ext + 1, dtype=jnp.uint32)
-    starts = sorted_bucket_starts(col_s, buckets).astype(jnp.int32)
-
-    slab_r0 = starts[jnp.arange(gxy + 1) * gxy] // LANE
-
-    # --- stream tensor [Rp, 8, 128] ---
-    R = -(-n // LANE)
-    Rp = R + slab_rows + 2
-    npad = Rp * LANE
-
-    def padto(v, fill):
-        return jnp.full((npad,), fill, jnp.float32).at[:n].set(v)
-
-    idf = jax.lax.bitcast_convert_type(ids_s, jnp.float32)
-    # Stack on axis 1, not stack+transpose (see slabs.py: the 32 MB XLA
-    # transpose ran ~7x off bandwidth; the axis-1 concat does not).
-    comp_rows = [
-        padto(x_s - r_s, jnp.inf), padto(y_s - r_s, jnp.inf),
-        padto(z_s - r_s, jnp.inf), padto(x_s + r_s, jnp.inf),
-        padto(y_s + r_s, jnp.inf), padto(z_s + r_s, jnp.inf),
-        padto(idf, jnp.inf), jnp.full((npad,), jnp.inf, jnp.float32),
-    ]
-    stream = jnp.stack([v.reshape(Rp, LANE) for v in comp_rows], axis=1)
-
-    # --- exact per-chunk z ranges (two-row strip gather + masked reduce) ---
-    nseg = npad // CHUNK
-    zlo_pad = jnp.full((nseg * CHUNK,), jnp.inf,
-                       jnp.float32).at[:n].set(z_s - r_s)
-    zhi_pad = jnp.full((nseg * CHUNK,), -jnp.inf,
-                       jnp.float32).at[:n].set(z_s + r_s)
-    zlo_rows = zlo_pad.reshape(nseg, CHUNK)
-    zhi_rows = zhi_pad.reshape(nseg, CHUNK)
-
-    c_idx = jnp.arange(ncols, dtype=jnp.int32)
-    k_idx = jnp.arange(mc, dtype=jnp.int32)
-    g0 = starts[c_idx][:, None] + k_idx[None, :] * CHUNK      # [ncols, mc]
-    ends = starts[c_idx + 1][:, None]
-    valid = g0 < ends
-    alen = jnp.clip(ends - g0, 0, CHUNK)
-    seg = jnp.minimum(g0 // CHUNK, nseg - 2)
-    strip_lo = jnp.concatenate(
-        [jnp.take(zlo_rows, seg, axis=0),
-         jnp.take(zlo_rows, seg + 1, axis=0)], axis=-1)  # [ncols, mc, 128]
-    strip_hi = jnp.concatenate(
-        [jnp.take(zhi_rows, seg, axis=0),
-         jnp.take(zhi_rows, seg + 1, axis=0)], axis=-1)
-    local = (g0 - seg * CHUNK)[..., None]
-    lane = jnp.arange(2 * CHUNK, dtype=jnp.int32)
-    inwin = (lane >= local) & (lane < local + alen[..., None])
-    lo_chunk = jnp.min(jnp.where(inwin, strip_lo, jnp.inf), axis=-1)
-    hi_chunk = jnp.max(jnp.where(inwin, strip_hi, -jnp.inf), axis=-1)
-
-    # Window thresholds in quantized-z space. quantize is monotone, so
-    # every sphere with center z >= lo_chunk - r_max has zq >= qlo (and
-    # symmetrically for qhi) — windows are exact supersets. Clamp to the
-    # finite scene range first: empty chunks carry +/-inf, whose uint32
-    # conversion is implementation-defined.
-    zhi_scene = lo_s[2] + zext
-    qlo = _quantize(jnp.clip(lo_chunk - r_max, lo_s[2], zhi_scene),
-                    lo_s[2], zscale, zmax)
-    qhi = _quantize(jnp.clip(hi_chunk + r_max, lo_s[2], zhi_scene),
-                    lo_s[2], zscale, zmax)
-
-    col_x = c_idx // gxy
-    col_y = c_idx % gxy
-    # One batched composite-key searchsorted for all (offset, lo/hi)
-    # thresholds: 10 separate calls measured ~18 ms at 1M on v5e; one
-    # batched call amortizes the coarse-search gather rounds.
-    key_q, valid_q = [], []
-    for (dx, dy) in COLUMN_OFFSETS:
-        yb = col_y + dy
-        cb = ((col_x + dx) * gxy + jnp.clip(yb, 0, gxy - 1)).astype(
-            jnp.uint32)
-        off_valid = ((yb >= 0) & (yb < gxy))[:, None] & valid
-        key_q.append((cb[:, None] << zbits) + qlo)
-        key_q.append((cb[:, None] << zbits) + qhi + 1)
-        valid_q.append(off_valid)
-    all_pos = sorted_bucket_starts(
-        key_s, jnp.stack(key_q).reshape(-1)
-    ).reshape(10, ncols, mc).astype(jnp.int32)
-
-    w0_list, wcap_list, rows_list, rolled_list = [], [], [], []
-    for off, (dx, dy) in enumerate(COLUMN_OFFSETS):
-        w0 = all_pos[2 * off]
-        wend = all_pos[2 * off + 1]
-        if (dx, dy) == (0, 0):
-            # Self column: the j > i dedup mask kills everything below the
-            # chunk start, so clip the window there.
-            w0 = jnp.maximum(w0, g0)
-        w0 = jnp.where(valid_q[off], w0, 0)
-        wcap = jnp.where(valid_q[off], jnp.maximum(wend - w0, 0), 0)
-        w0_list.append(w0)
-        wcap_list.append(wcap)
-        rows_list.append((w0 % LANE + wcap + LANE - 1) // LANE)
-        rolled_list.append((wcap + LANE - 1) // LANE)
-
-    w0_tab = jnp.stack(w0_list, axis=-1)      # [ncols, mc, 5]
-    wcap_tab = jnp.stack(wcap_list, axis=-1)
-    w0_tab = w0_tab.reshape(gxy, gxy * mc * 5)
-    wcap_tab = wcap_tab.reshape(gxy, gxy * mc * 5)
-    # Stream rows the kernel must visit per window: the static rows-per-
-    # window knob must cover this or pairs would be dropped (host retry).
-    win_rows_needed = jnp.max(jnp.stack(rows_list))
-    win_rows_rolled = jnp.max(jnp.stack(rolled_list))
-
-    # --- capacity checks (host retry stats; never silently wrong) ---
-    col_lens = starts[1:ncols + 1] - starts[:ncols]
-    max_col = jnp.max(col_lens) if ncols else jnp.int32(0)
-    xs = jnp.arange(gxy)
-    rows_needed = (
-        (starts[(xs + 1) * gxy] + (LANE - 1)) // LANE
-        - starts[xs * gxy] // LANE
-    )
-    max_slab = jnp.max(rows_needed)
-    ok = (max_col <= col_capacity) & (max_slab + 2 <= slab_rows)
-
-    return (stream, starts, slab_r0.astype(jnp.int32), w0_tab, wcap_tab,
-            ok, max_col.astype(jnp.int32), max_slab.astype(jnp.int32),
-            win_rows_needed.astype(jnp.int32),
-            win_rows_rolled.astype(jnp.int32))

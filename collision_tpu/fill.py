@@ -2,12 +2,10 @@
 
 The reference enumerates pairs by writing each hit through a global atomic
 cursor into a device buffer bounded only by memory
-(/root/reference/collision/collision.cl:202-215). TPUs have no global
-atomics — and the round-1 workaround (pairs resident in VMEM during the
-sweep) capped capacity at 262144. This module removes the cap the TPU way:
-pair enumeration becomes a **feed-forward dense pipeline** of sorts,
-cumulative sums and gathers — no scatter, no atomics, no Pallas — bounded
-only by HBM, working at input precision (float32 or float64).
+(/root/reference/collision/collision.cl:202-215). Here pair enumeration is a
+**feed-forward dense pipeline** of sorts, cumulative sums and gathers — no
+scatter, no atomics — bounded only by device memory, working at input
+precision (float32 or float64), and deterministic in its output order.
 
 Pipeline (all inside one jit):
   1. Column sort (columns._column_sort): spheres sorted by
@@ -51,8 +49,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .columns import (
-    CHUNK, COLUMN_OFFSETS, LANE, _column_sort, _quantize, _zbits)
+from .columns import COLUMN_OFFSETS, _column_sort, _quantize, _zbits
 from .ops.offset import sorted_bucket_starts
 from .ops.scan import inclusive_scan
 
@@ -244,512 +241,6 @@ def _run_fill(coords, radii, capacity, gxy, cand_capacity, chunk):
     return pairs, total.astype(jnp.uint32), ok
 
 
-#  ---------------------------------------------------------------------
-#  Mask fill: the TPU fast path.
-#
-#  run_fill above is pure XLA but *gather-bound* on TPU: its candidate
-#  pass does ~12 scalar gathers per candidate, and a v5e scalar gather
-#  costs ~9 ns/element regardless of table size or index order (measured,
-#  benchmarks/exp_gather.py) — 5.9 s/step at 1M spheres. The mask fill
-#  keeps the candidate testing inside the Pallas column sweep
-#  (kernels/sweep.py sweep_masks — no gathers at all) and makes emission
-#  *sparse*: mask rows with no set bits (the vast majority on realistic
-#  scenes — ~6k of 45M words are nonzero at 1M uniform) are compacted
-#  away before any per-word work, at two granularities (128-word lane
-#  rows, then single words). Every dense op stays in the mask buffer's
-#  native [rows, 128] layout — the round-2 pipeline's flat reshape +
-#  [N, 8]-unit relayout were ~9.3 ms of pure data movement at 1M
-#  (profiled: reshape 5.0 ms + layout copy 4.3 ms, exp_r3_prof.py).
-#  ---------------------------------------------------------------------
-
-def _select_bit(word, rank):
-    """Index of the ``rank``-th set bit of ``word`` (binary partition by
-    popcount — 5 wide rounds, no per-element loops)."""
-    pos = jnp.zeros_like(word, dtype=jnp.int32)
-    rem = rank
-    for width in (16, 8, 4, 2, 1):
-        lowmask = ((jnp.uint32(1) << width) - 1) << pos.astype(jnp.uint32)
-        c = jax.lax.population_count(word & lowmask).astype(jnp.int32)
-        right = c <= rem
-        rem = jnp.where(right, rem - c, rem)
-        pos = jnp.where(right, pos + width, pos)
-    return pos
-
-
-def _mask_fill_emit(B, starts, w0_flat, mc, ids_flat, capacity, rpw,
-                    total, kcap=None, noff=5, rolled=False, rp=None):
-    """Emit (ida, idb) SoA pair buffers from packed sweep masks.
-
-    ``B``: uint32[ncols*NG, KG*noff*rpw*2, 128] from sweep_masks
-    (``noff=5``, aligned window rows) or slab_sweep_masks (``noff=2``,
-    ``rolled=True``: lane l of tile row r = window element
-    w0 + r*128 + l). A word's flat (row, lane) position decodes to
-    (column, chunk group, tile slot, half, stream lane); bit b = chunk
-    sublane h*32+b. ``starts``/``w0_flat`` are the plan's column starts
-    and flattened window-start table; ``mc`` the chunk capacity.
-
-    Emission is *sparse*, at two granularities that both stay in the
-    mask buffer's native [rows, 128] layout (the round-2 pipeline's flat
-    reshape + unit relayout were ~9.3 ms of pure data movement at 1M):
-
-      1. rows with no set bits (the vast majority on realistic scenes —
-         ~6k of 45M words are nonzero at 1M uniform) are compacted away
-         by an inclusive scan + hierarchical select, capped at
-         ``capacity + margin`` rows (each kept row holds >= 1 pair, so
-         the prefix is exact — ``trunc_safe`` reports when the cap was
-         provably sufficient);
-      2. nonzero words within the kept rows are compacted the same way.
-
-    Each output slot then resolves its word by one hierarchical
-    searchsorted into the kept words' cumulative popcounts, its bit by
-    rank-select, and decodes (column, chunk, half, stream row) back to
-    the two sorted indices with pure arithmetic — per-pair work is a
-    handful of scalar gathers (~9 ns each on v5e), paid only for the
-    ``capacity`` slots actually materialized.
-    """
-    from .kernels.sweep import mask_groups
-
-    kg, ng = mask_groups(mc, rpw)
-    kgt = kg * noff * rpw
-
-    Bv = B.reshape(-1, LANE)               # layout-preserving: minor=128
-    Rw = Bv.shape[0]
-    imax = jnp.int32(2 ** 31 - 1)
-
-    if rp is None:
-        pc = jax.lax.population_count(Bv).astype(jnp.int32)
-        row_pairs = jnp.sum(pc, axis=1, dtype=jnp.int32)   # [Rw]
-    else:
-        row_pairs = rp.reshape(-1)         # caller's shared popcount pass
-
-    # --- level 1: compact hit rows (128-word granularity) ---
-    cap_k = capacity + 8 if kcap is None else kcap
-    RK = max(min(Rw, cap_k), 1)
-    ic_r = inclusive_scan((row_pairs > 0).astype(jnp.int32))
-    nkr = ic_r[-1]
-    ordr = jnp.arange(RK, dtype=jnp.int32)
-    rsel = jnp.minimum(
-        sorted_bucket_starts(ic_r, ordr + 1, strides=_auto_strides(Rw)),
-        Rw - 1)
-    live_r = ordr < nkr
-    rows = jnp.where(
-        live_r[:, None], jnp.take(Bv, rsel, axis=0), 0)    # [RK, 128]
-    # Truncation is exact iff every hit row was kept, or the kept prefix
-    # already covers ``capacity`` pairs.
-    csum_rp = inclusive_scan(row_pairs)
-    safe_r = (nkr <= RK) | (jnp.take(csum_rp, rsel[RK - 1]) >= capacity)
-
-    # --- level 2: compact nonzero words within kept rows ---
-    wpc = jax.lax.population_count(rows).astype(jnp.int32)  # [RK, 128]
-    wflat = rows.reshape(-1)
-    wpcf = wpc.reshape(-1)
-    ic_pf = inclusive_scan(wpcf)       # global pair cum (kept rows only,
-    #                                    == global: dropped rows are empty)
-    WK = max(min(RK * LANE, cap_k), 1)
-    ic_w = inclusive_scan((wpcf > 0).astype(jnp.int32))
-    nkw = ic_w[-1]
-    ordw = jnp.arange(WK, dtype=jnp.int32)
-    wsel = jnp.minimum(
-        sorted_bucket_starts(ic_w, ordw + 1,
-                             strides=_auto_strides(RK * LANE)),
-        RK * LANE - 1)
-    live_w = ordw < nkw
-    wval = jnp.where(live_w, jnp.take(wflat, wsel), jnp.uint32(0))
-    wpc_s = jnp.where(live_w, jnp.take(wpcf, wsel), 0)
-    wcum_s = jnp.where(live_w, jnp.take(ic_pf, wsel), imax)
-    grow_w = jnp.take(rsel, wsel // LANE)      # global mask row per word
-    lane_w = wsel % LANE
-    safe_w = (nkw <= WK) | (jnp.take(ic_pf, wsel[WK - 1]) >= capacity)
-    trunc_safe = safe_r & safe_w
-
-    # --- per-slot resolution ---
-    q = jnp.arange(capacity, dtype=jnp.int32)
-    sel = jnp.minimum(
-        sorted_bucket_starts(wcum_s, q + 1, strides=_auto_strides(WK)),
-        WK - 1)
-    word = jnp.take(wval, sel)
-    rank = jnp.maximum(
-        q - (jnp.take(wcum_s, sel) - jnp.take(wpc_s, sel)), 0)
-    bit = _select_bit(word, rank)
-    R = jnp.take(grow_w, sel)
-    lane = jnp.take(lane_w, sel)
-
-    # --- decode (mask row, lane, bit) -> sorted stream indices ---
-    h = R % 2
-    sl = (R // 2) % kgt
-    nb = R // (2 * kgt)
-    colg = nb // ng
-    g = nb % ng
-    kk = sl // (noff * rpw)
-    off = (sl // rpw) % noff
-    r = sl % rpw
-    k = jnp.minimum(g * kg + kk, mc - 1)
-
-    nsort = ids_flat.shape[0]
-    i = jnp.take(starts, jnp.minimum(colg, starts.shape[0] - 1)) \
-        + k * CHUNK + h * 32 + bit
-    w0u = jnp.take(w0_flat, (colg * mc + k) * noff + off)
-    if rolled:
-        j = w0u + r * LANE + lane
-    else:
-        j = (w0u // LANE + r) * LANE + lane
-    ida = jnp.take(ids_flat, jnp.clip(i, 0, nsort - 1))
-    idb = jnp.take(ids_flat, jnp.clip(j, 0, nsort - 1))
-    live = q < jnp.minimum(total, capacity)
-    return (jnp.where(live, ida, jnp.uint32(NO_PAIR)),
-            jnp.where(live, idb, jnp.uint32(NO_PAIR)),
-            trunc_safe)
-
-
-#: Capacity above which the blocked emission replaces the single-shot
-#: sparse path, whose compaction tables and searchsorted windows are
-#: capacity-sized: a 110M-slot fill would materialize a [capacity, 128]
-#: pyramid window — 56 GB. (Measured OOM on the reference's dense
-#: 107.6M-pair scene, round 3.)
-BIG_FILL_THRESHOLD = 1 << 21
-
-#: Above this many mask-buffer rows the wide interleaved fetch table
-#: ([Rw, 384] u32) would exceed a few GB of HBM; the big path then falls
-#: back to per-slot flat gathers for the id lookups (slower, same
-#: result).
-_WIDE_ROWS_CAP = 1 << 23
-
-
-def _mask_fill_emit_big(B, starts, w0_flat, mc, ids_flat, capacity, rpw,
-                        total, kcap=None, noff=5, rolled=False, rp=None,
-                        blk=1 << 19):
-    """Blocked pair emission for huge capacities (dense full fills).
-
-    The single-shot sparse path (:func:`_mask_fill_emit`) materializes
-    capacity-sized compaction tables and [capacity, 128] searchsorted
-    windows — 56 GB at the reference's dense 107.6M-pair scene (measured
-    OOM). This path is built from the measured v5e primitive costs
-    (benchmarks/exp_r3_gatherprims.py): scalar gathers are ~7 ns/element
-    at ANY table size, while wide-row gathers, dynamic slices and dense
-    [blk, 128] vector ops run at or near HBM bandwidth. Consequently:
-
-      slot -> row: precomputed ONCE by run-expansion — scatter each
-        nonzero mask row's index at its first output slot (strictly
-        increasing positions, ``drop`` mode past capacity), then a
-        cummax forward-fills; likewise the row's starting pair index.
-        Per block these are free contiguous slices — no per-slot
-        searchsorted, no per-slot gathers for the row lookup.
-      per-slot fetch: ONE wide interleaved row gather from
-        F = [mask words 128 | window ids 128 | chunk ids 64] (u32),
-        1.5 KB rows at DMA-class speed. Both original sphere ids are
-        resolved from the fetched row with one-hot selects — the id
-        tables are pre-gathered per mask row (cheap: one aligned
-        row-gather + one chunk-table gather at plan scale), so NO
-        per-slot scalar gather remains anywhere on the aligned path.
-      word + rank: in-row lane cumsum + one-hot select + 5-round
-        popcount rank-select — dense vector ops.
-
-    The rolled (slab) mask layout has unaligned window starts, so its
-    window-id lanes cannot be pre-gathered as aligned rows; that variant
-    keeps two per-slot flat gathers (~14 ns/pair) — the slab engine is
-    not the dense-fill workhorse. Exactness does not depend on ``blk``
-    or any cap: this path has no truncation (``trunc_safe`` is always
-    True); ``kcap`` is accepted for API compatibility and ignored.
-    """
-    from .kernels.sweep import mask_groups
-
-    kg, ng = mask_groups(mc, rpw)
-    kgt = kg * noff * rpw
-
-    Bv = B.reshape(-1, LANE)               # layout-preserving: minor=128
-    Rw = Bv.shape[0]
-    nsort = ids_flat.shape[0]
-
-    if rp is None:
-        pc = jax.lax.population_count(Bv).astype(jnp.int32)
-        row_pairs = jnp.sum(pc, axis=1, dtype=jnp.int32)   # [Rw]
-    else:
-        row_pairs = rp.reshape(-1)         # caller's shared popcount pass
-    csum_rp = inclusive_scan(row_pairs)
-    start_r = csum_rp - row_pairs          # exclusive per-row pair base
-
-    nblk = -(-capacity // blk)
-    capn = nblk * blk
-
-    # --- run-expansion: slot -> (mask row, row pair base), built once.
-    # Nonzero rows have strictly increasing start_r, so the scatters are
-    # collision-free; rows starting past the buffer are dropped.
-    nz = row_pairs > 0
-    pos = jnp.where(nz, jnp.minimum(start_r, capn), capn)
-    ridx = jnp.arange(Rw, dtype=jnp.int32)
-    R_of = jnp.zeros((capn,), jnp.int32).at[pos].max(
-        ridx + 1, mode="drop")
-    R_of = jnp.maximum(jax.lax.cummax(R_of, axis=0) - 1, 0)
-    pb_of = jnp.zeros((capn,), jnp.int32).at[pos].max(
-        start_r + 1, mode="drop")
-    pb_of = jnp.maximum(jax.lax.cummax(pb_of, axis=0) - 1, 0)
-
-    # --- per-mask-row decode constants (dense arithmetic over [Rw]).
-    sl = (ridx // 2) % kgt
-    nb_ = ridx // (2 * kgt)
-    colg = nb_ // ng
-    g = nb_ % ng
-    kk = sl // (noff * rpw)
-    off = (sl // rpw) % noff
-    r_in = sl % rpw
-    k_row = jnp.minimum(g * kg + kk, mc - 1)
-    cbase = jnp.take(starts, jnp.minimum(colg, starts.shape[0] - 1)) \
-        + k_row * CHUNK                    # chunk start (sorted space)
-    w0u = jnp.take(w0_flat, (colg * mc + k_row) * noff + off)
-    if rolled:
-        w0r = w0u + r_in * LANE            # unaligned window row start
-    else:
-        w0r = (w0u // LANE + r_in) * LANE  # 128-aligned by construction
-
-    wide = (not rolled) and Rw <= _WIDE_ROWS_CAP
-    if wide:
-        # Chunk-id table: each (column-group, chunk) slot's 64 original
-        # ids, gathered once at ~plan scale (not per mask row).
-        NC = max(Rw // (2 * kgt * ng), 1)
-        cg_grid = jnp.arange(NC, dtype=jnp.int32)
-        k_grid = jnp.arange(mc, dtype=jnp.int32)
-        g0 = (jnp.take(starts, jnp.minimum(cg_grid, starts.shape[0] - 1))
-              [:, None] + k_grid[None, :] * CHUNK)          # [NC, mc]
-        sub64 = jnp.arange(CHUNK, dtype=jnp.int32)
-        A = jnp.take(
-            ids_flat,
-            jnp.clip(g0[..., None] + sub64, 0, nsort - 1)
-        ).reshape(NC * mc, CHUNK)                           # [NC*mc, 64]
-
-        # Window-id rows: 128 consecutive sorted-order ids per mask row
-        # (aligned -> one wide row-gather from the padded id grid).
-        idp = -(-nsort // LANE) * LANE
-        ids2d = jnp.full((idp,), jnp.uint32(0)).at[:nsort].set(
-            ids_flat).reshape(-1, LANE)
-        wrow = jnp.clip(w0r // LANE, 0, ids2d.shape[0] - 1)
-        Fb = jnp.take(ids2d, wrow, axis=0)                  # [Rw, 128]
-        Fa = jnp.take(A, jnp.minimum(colg * mc + k_row, NC * mc - 1),
-                      axis=0)                               # [Rw, 64]
-        # Pad to 3 full 128-lane tiles: 320-lane rows straddle tile
-        # boundaries and gathered ~28% slower.
-        F = jnp.concatenate(
-            [Bv, Fb, Fa,
-             jnp.zeros((Rw, 2 * LANE - CHUNK), jnp.uint32)],
-            axis=1)                                         # [Rw, 384]
-
-    lane_i = jnp.arange(LANE, dtype=jnp.int32)[None, :]
-    sub_i = jnp.arange(CHUNK, dtype=jnp.int32)[None, :]
-    lim = jnp.minimum(total, capacity)
-    # Lane prefix-sum as an MXU matmul: XLA lowers cumsum(axis=1) to a
-    # 128-wide reduce_window (O(window) work per element — measured
-    # 12.6 ms/block vs 0.8 ms standalone), while [blk,128] x [128,128]
-    # rides the idle MXU. Word popcounts <= 32 and row sums <= 4096 are
-    # exact in f32.
-    tri = jnp.triu(jnp.ones((LANE, LANE), jnp.float32))
-
-    def block(b):
-        q0 = b * blk
-        q = q0 + jnp.arange(blk, dtype=jnp.int32)
-        R = jax.lax.dynamic_slice(R_of, (q0,), (blk,))
-        pb = jax.lax.dynamic_slice(pb_of, (q0,), (blk,))
-        rem = q - pb                       # pair rank within the row
-
-        if wide:
-            Frow = jnp.take(F, R, axis=0)                  # [blk, 320]
-            m = Frow[:, :LANE]
-        else:
-            m = jnp.take(Bv, R, axis=0)                    # [blk, 128]
-        wpc_r = jax.lax.population_count(m).astype(jnp.int32)
-        lane_cum = jax.lax.dot(
-            wpc_r.astype(jnp.float32), tri,
-            precision=jax.lax.Precision.HIGHEST).astype(jnp.int32)
-        lane = jnp.sum((lane_cum <= rem[:, None]).astype(jnp.int32),
-                       axis=1)
-        onehot = lane_i == lane[:, None]
-        word = jnp.sum(jnp.where(onehot, m, jnp.uint32(0)),
-                       axis=1, dtype=jnp.uint32)
-        before = jnp.sum(jnp.where(lane_i < lane[:, None], wpc_r, 0),
-                         axis=1, dtype=jnp.int32)
-        rank = jnp.maximum(rem - before, 0)
-        bit = _select_bit(word, rank)
-        sub = (R % 2) * 32 + bit           # h * 32 + bit, h = row parity
-
-        if wide:
-            idb = jnp.sum(
-                jnp.where(onehot, Frow[:, LANE:2 * LANE], jnp.uint32(0)),
-                axis=1, dtype=jnp.uint32)
-            ida = jnp.sum(
-                jnp.where(sub_i == sub[:, None],
-                          Frow[:, 2 * LANE:2 * LANE + CHUNK],
-                          jnp.uint32(0)),
-                axis=1, dtype=jnp.uint32)
-        else:
-            i = jnp.take(cbase, R) + sub
-            j = jnp.take(w0r, R) + lane
-            ida = jnp.take(ids_flat, jnp.clip(i, 0, nsort - 1))
-            idb = jnp.take(ids_flat, jnp.clip(j, 0, nsort - 1))
-        live = q < lim
-        return (jnp.where(live, ida, jnp.uint32(NO_PAIR)),
-                jnp.where(live, idb, jnp.uint32(NO_PAIR)))
-
-    ida, idb = jax.lax.map(block, jnp.arange(nblk, dtype=jnp.int32))
-    return (ida.reshape(-1)[:capacity], idb.reshape(-1)[:capacity],
-            jnp.bool_(True))
-
-
-#: Largest sorted-id array the in-kernel emission keeps VMEM-resident
-#: (as [n/128, 128] i32 rows): 6 MB = 1.5M spheres, leaving room for the
-#: double-buffered 2 MB mask blocks and the staging ring.
-KERNEL_EMIT_MAX_IDS = 3 * (1 << 19)
-
-
-def _mask_fill_emit_pallas(B, starts, w0_flat, mc, ids_flat, capacity,
-                           rpw, total, kcap=None, noff=5, rolled=False,
-                           rp=None, interpret=False, mxu=False,
-                           nostore=False):
-    """In-kernel pair emission (kernels/pair_emit.py): each mask row is
-    streamed once and its pairs leave through a carried-cursor staging
-    ring at ~vector-op cost per pair — the TPU restoration of the
-    reference's memory-bound atomic-cursor emission
-    (collision.cl:202-215). Exact at any capacity (no truncation knob:
-    ``trunc_safe`` is always True); ``kcap`` accepted and ignored.
-
-    The per-row scalar tables (flat sorted window start / chunk start
-    per mask row group) are pure reshapes and broadcasts of the plan's
-    window table — no gathers anywhere in the pipeline.
-    """
-    from .kernels.pair_emit import emit_pairs
-    from .kernels.sweep import mask_groups
-
-    kg, ng = mask_groups(mc, rpw)
-    kgt = kg * noff * rpw
-    NB = B.shape[0]
-    ncols = NB // ng
-    B3 = B.reshape(NB, 2 * kgt, LANE)
-
-    w3 = jnp.asarray(w0_flat, jnp.int32).reshape(ncols, mc, noff)
-    pad = kg * ng - mc
-    if pad:
-        w3 = jnp.concatenate(
-            [w3, jnp.broadcast_to(w3[:, -1:, :], (ncols, pad, noff))], 1)
-    w4 = w3.reshape(NB, kg, noff, 1)
-    r_i = jnp.arange(rpw, dtype=jnp.int32)
-    if rolled:
-        wstart = w4 + r_i * LANE
-    else:
-        wstart = (w4 // LANE + r_i) * LANE
-    wstart_tab = wstart.reshape(NB, kgt)
-
-    k_tab = jnp.minimum(
-        jnp.arange(ng, dtype=jnp.int32)[:, None] * kg
-        + jnp.arange(kg, dtype=jnp.int32)[None, :], mc - 1)  # [ng, kg]
-    cb3 = jnp.asarray(starts[:ncols], jnp.int32)[:, None, None] \
-        + k_tab[None] * CHUNK                                # [ncols,ng,kg]
-    cb_tab = jnp.broadcast_to(
-        cb3.reshape(NB, kg, 1), (NB, kg, noff * rpw)).reshape(NB, kgt)
-
-    ida, idb = emit_pairs(B3, wstart_tab, cb_tab, ids_flat, capacity,
-                          rp_tab=None if rp is None else
-                          rp.reshape(NB, 2 * kgt),
-                          interpret=interpret, mxu=mxu, nostore=nostore)
-    q = jnp.arange(capacity, dtype=jnp.int32)
-    live = q < jnp.minimum(total, capacity)
-    return (jnp.where(live, ida, jnp.uint32(NO_PAIR)),
-            jnp.where(live, idb, jnp.uint32(NO_PAIR)),
-            jnp.bool_(True))
-
-
-def _pick_emit(capacity, emit_blk, nsort, interpret, emit_mode=None):
-    """Emission path for a static capacity.
-
-    Auto routing: single-shot sparse compaction below
-    BIG_FILL_THRESHOLD (mask rows are mostly empty on small-capacity
-    realistic scenes); the in-kernel streaming emission above it (dense
-    full fills — measured 44 ns/pair for the blocked XLA path vs
-    vector-op cost in-kernel) whenever the sorted-id table fits VMEM;
-    the blocked XLA path otherwise. ``emit_blk`` forces the blocked
-    path with that block size; ``emit_mode`` forces a path by name
-    ("sparse" | "big" | "kernel") — both test hooks / perf knobs.
-    """
-    if emit_mode == "kernel":
-        return partial(_mask_fill_emit_pallas, interpret=interpret)
-    if emit_mode == "kernel_mxu":
-        return partial(_mask_fill_emit_pallas, interpret=interpret,
-                       mxu=True)
-    if emit_mode == "kernel_nostore":
-        return partial(_mask_fill_emit_pallas, interpret=interpret,
-                       nostore=True)
-    if emit_mode == "kernel_mxu_nostore":
-        return partial(_mask_fill_emit_pallas, interpret=interpret,
-                       mxu=True, nostore=True)
-    if emit_mode == "sparse":
-        return _mask_fill_emit
-    if emit_mode == "big":
-        return _mask_fill_emit_big
-    if emit_blk is not None:
-        return partial(_mask_fill_emit_big, blk=int(emit_blk))
-    if capacity > BIG_FILL_THRESHOLD:
-        if nsort <= KERNEL_EMIT_MAX_IDS:
-            return partial(_mask_fill_emit_pallas, interpret=interpret)
-        return _mask_fill_emit_big
-    return _mask_fill_emit
-
-
-def mask_fill(coords, radii, capacity, gxy, col_capacity, slab_rows,
-              rpw=2, interpret=False, chunk_blocks=1 << 16, kcap=None,
-              emit_blk=None, emit_mode=None):
-    """Gather-free TPU pair enumeration from packed sweep masks.
-
-    Returns (ida[capacity], idb[capacity], total, ok) — SoA uint32 pair
-    buffers (a [capacity, 2] AoS array tiles to 64x its size on TPU;
-    callers stack only when small). ``ok`` is False when the plan's
-    static knobs were insufficient (host retries with exact stats).
-    ``kcap`` optionally bounds the kept-row/word tables below the
-    always-safe ``capacity`` default — a perf knob for huge fills,
-    covered by ``ok``. ``chunk_blocks`` is accepted for API
-    compatibility; the sparse emission no longer chunks. Capacities
-    above BIG_FILL_THRESHOLD emit through the blocked big-fill path
-    (``emit_blk`` forces it with a given block size).
-    """
-    return _mask_fill_impl(
-        coords, radii, int(capacity), int(gxy), int(col_capacity),
-        int(slab_rows), int(rpw), bool(interpret), int(chunk_blocks),
-        None if kcap is None else int(kcap),
-        None if emit_blk is None else int(emit_blk),
-        emit_mode)
-
-
-@partial(jax.jit, static_argnames=(
-    "capacity", "gxy", "col_capacity", "slab_rows", "rpw", "interpret",
-    "chunk_blocks", "kcap", "emit_blk", "emit_mode"))
-def _mask_fill_impl(coords, radii, capacity, gxy, col_capacity, slab_rows,
-                    rpw, interpret, chunk_blocks, kcap=None,
-                    emit_blk=None, emit_mode=None):
-    from .columns import plan_columns
-    from .kernels.sweep import sweep_masks
-
-    plan = plan_columns(
-        jnp.asarray(coords, jnp.float32), jnp.asarray(radii, jnp.float32),
-        gxy, col_capacity, slab_rows)
-    B = sweep_masks(plan, rpw=rpw, interpret=interpret)
-    # ONE popcount pass over the mask buffer, in its native layout (a
-    # flat reshape relayouts: ~5 ms/46M words measured), shared by the
-    # total, the overflow guard, and the emission paths' row tables.
-    rp = jnp.sum(jax.lax.population_count(B).astype(jnp.int32), axis=2,
-                 dtype=jnp.int32)                      # [NB, rows]
-    total = jnp.sum(rp, dtype=jnp.int32)
-    # int32 guard for pathological all-overlapping scenes (f32 tree sum
-    # is accurate to ~2^-20 relative — sound as a margined detector).
-    ok = plan.ok & (plan.rows_needed <= rpw) \
-        & (jnp.sum(rp.astype(jnp.float32)) < float(2 ** 31 - 2 ** 26))
-    if capacity == 0:
-        return (jnp.zeros((0,), jnp.uint32), jnp.zeros((0,), jnp.uint32),
-                total.astype(jnp.uint32), ok)
-    ids_flat = jax.lax.bitcast_convert_type(
-        plan.stream[:, 6, :], jnp.uint32).reshape(-1)
-    emit = _pick_emit(capacity, emit_blk, ids_flat.shape[0], interpret,
-                      emit_mode)
-    ida, idb, trunc_safe = emit(
-        B, plan.starts, plan.w0.reshape(-1), plan.mc, ids_flat, capacity,
-        rpw, total, kcap, noff=5, rolled=False, rp=rp)
-    return ida, idb, total.astype(jnp.uint32), ok & trunc_safe
-
-
 def run_fill(coords, radii, capacity, gxy, cand_capacity, chunk=1 << 20):
     """Enumerate colliding pairs into a ``capacity``-slot buffer.
 
@@ -771,123 +262,3 @@ def run_fill(coords, radii, capacity, gxy, cand_capacity, chunk=1 << 20):
     cand_capacity = -(-cand_capacity // chunk) * chunk
     return _run_fill(coords, radii, int(capacity), int(gxy),
                      int(cand_capacity), chunk)
-
-
-def slab_mask_fill(coords, radii, capacity, gx, col_capacity, slab_rows,
-                   rpw=1, interpret=False, kcap=None, emit_blk=None,
-                   emit_mode=None, dual=False):
-    """Sparse-emission pair fill over the slab engine's 2-offset masks.
-
-    The slab analog of :func:`mask_fill`: the rolled slab masks kernel
-    (kernels/slab_sweep.py slab_sweep_masks) writes ~2/5 the mask words
-    of the column kernel, and the same two-level sparse emission decodes
-    them (``noff=2``, rolled window rows). Returns
-    (ida[capacity], idb[capacity], total, ok). Huge capacities use the
-    blocked big-fill emission, as in :func:`mask_fill`.
-
-    ``dual=True`` removes the rows-per-window knob the way the dual
-    count does (kernels/slab_sweep.slab_count_dual): the masks kernel
-    always runs at ONE rolled row with windows clamped to 128 lanes,
-    and the rare clipped remainders are enumerated by
-    :func:`~collision_tpu.slabs.residual_pairs` and appended after the
-    mask pairs. ``rpw`` is ignored; ``ok`` covers the residual-job and
-    residual-pair capacities instead of ``rows_rolled <= rpw``.
-    """
-    return _slab_mask_fill_impl(
-        coords, radii, int(capacity), int(gx), int(col_capacity),
-        int(slab_rows), int(rpw), bool(interpret),
-        None if kcap is None else int(kcap),
-        None if emit_blk is None else int(emit_blk),
-        emit_mode, bool(dual))
-
-
-@partial(jax.jit, static_argnames=(
-    "capacity", "gx", "col_capacity", "slab_rows", "rpw", "interpret",
-    "kcap", "emit_blk", "emit_mode", "dual"))
-def _slab_mask_fill_impl(coords, radii, capacity, gx, col_capacity,
-                         slab_rows, rpw, interpret, kcap=None,
-                         emit_blk=None, emit_mode=None, dual=False):
-    from .slabs import plan_slabs
-
-    plan = plan_slabs(
-        jnp.asarray(coords, jnp.float32), jnp.asarray(radii, jnp.float32),
-        gx, col_capacity, slab_rows)
-    return slab_fill_from_plan(plan, capacity, rpw, interpret, kcap,
-                               emit_blk, emit_mode, dual)
-
-
-def slab_fill_from_plan(plan, capacity, rpw=1, interpret=False, kcap=None,
-                        emit_blk=None, emit_mode=None, dual=False,
-                        split_ok=False, dual_base=1):
-    """(ida, idb, total, ok) from a prebuilt :class:`~collision_tpu.slabs
-    .SlabPlan` — the engine core of :func:`slab_mask_fill`, shared with
-    the hetero engine's S-S pass (hetero.py builds the plan over the
-    *parked* radii and reuses this emission verbatim). ``capacity == 0``
-    returns empty pair buffers with the exact total (the dual count's
-    fill-side twin). ``split_ok`` (dual only) returns
-    (ida, idb, total, gx_ok, other_ok) instead: gx_ok holds the
-    components a finer slab grid can fix (plan capacities, residual
-    jobs), other_ok the ones it cannot (int32 wrap, emission-row
-    truncation) — retry ladders stop escalating gx when other_ok is the
-    failing side."""
-    from .columns import LANE
-    from .kernels.slab_sweep import slab_sweep_masks
-    from .slabs import residual_pairs
-
-    if dual:
-        # ``dual_base`` rows in-sweep, residual segments for the rest
-        # (1 for the uniform flagship; the hetero slab path runs 2 —
-        # its parked plans have fat (128,256] window tails that blow
-        # the residual job list at base=1, see slab_count_dual).
-        rpw = dual_base
-        sweep_plan = plan._replace(
-            wcap=jnp.minimum(plan.wcap, dual_base * LANE))
-    else:
-        sweep_plan = plan
-    B = slab_sweep_masks(sweep_plan, rpw=rpw, interpret=interpret)
-    # One native-layout popcount pass shared with emission (see
-    # _mask_fill_impl).
-    rp = jnp.sum(jax.lax.population_count(B).astype(jnp.int32), axis=2,
-                 dtype=jnp.int32)                      # [NB, rows]
-    mask_total = jnp.sum(rp, dtype=jnp.int32)
-    no_wrap = jnp.sum(rp.astype(jnp.float32)) < float(2 ** 31 - 2 ** 26)
-    if dual:
-        rida, ridb, rcount, r_ok = residual_pairs(
-            plan, interpret=interpret, base=dual_base)
-        total = mask_total + rcount
-        gx_ok = plan.ok & r_ok
-        ok = gx_ok & no_wrap
-    else:
-        if split_ok:
-            raise ValueError("split_ok requires dual=True")
-        total = mask_total
-        ok = plan.ok & (plan.rows_rolled <= rpw) & no_wrap
-    if capacity == 0:
-        empty = (jnp.zeros((0,), jnp.uint32), jnp.zeros((0,), jnp.uint32))
-        if split_ok:
-            return empty + (total.astype(jnp.uint32), gx_ok, no_wrap)
-        return empty + (total.astype(jnp.uint32), ok)
-    ids_flat = jax.lax.bitcast_convert_type(
-        plan.stream[:, 6, :], jnp.uint32).reshape(-1)
-    emit = _pick_emit(capacity, emit_blk, ids_flat.shape[0], interpret,
-                      emit_mode)
-    ida, idb, trunc_safe = emit(
-        B, plan.starts, plan.w0.reshape(-1), plan.mc, ids_flat, capacity,
-        rpw, mask_total, kcap, noff=2, rolled=True, rp=rp)
-    if dual:
-        # Append the residual pairs after the mask pairs, preserving the
-        # truncate-at-capacity + 0xFFFFFFFF-sentinel contract.
-        NO_PAIR = jnp.uint32(0xFFFFFFFF)
-        q = jnp.arange(capacity, dtype=jnp.int32)
-        tm = jnp.minimum(mask_total, capacity)
-        in_m = q < tm
-        qr = jnp.clip(q - tm, 0, rida.shape[0] - 1)
-        ida = jnp.where(in_m, ida, jnp.take(rida, qr))
-        idb = jnp.where(in_m, idb, jnp.take(ridb, qr))
-        live = q < jnp.minimum(total, capacity)
-        ida = jnp.where(live, ida, NO_PAIR)
-        idb = jnp.where(live, idb, NO_PAIR)
-    if split_ok:
-        return (ida, idb, total.astype(jnp.uint32), gx_ok,
-                no_wrap & trunc_safe)
-    return ida, idb, total.astype(jnp.uint32), ok & trunc_safe

@@ -1,14 +1,10 @@
-"""Dense uniform-grid broad phase — the TPU fast path.
+"""Dense uniform-grid broad phase.
 
-The reference's traversal kernel is a divergent per-thread stack walk
-(collision.cl:174-226) — the worst possible shape for a TPU, where XLA
-gather/scatter of scalars runs two orders of magnitude below HBM bandwidth
-(measured on v5e: ~5-15 ms per million random accesses, vs ~0.05 ms per
-million elements for dense ops). The pair *set* is defined purely
+An independent exact engine for counts: the pair *set* is defined purely
 geometrically (strict overlap of center±radius AABBs), so this module
-computes the exact same set with an algorithm built from the ops TPUs are
-fast at: one multi-operand sort, segment scans, one row-scatter, and a
-fixed 14-offset stencil of fully dense tile-vs-tile AABB tests.
+computes it with one multi-operand sort, a segment scan, one row-scatter,
+and a fixed 14-offset stencil of fully dense tile-vs-tile AABB tests — no
+tree and no per-sphere candidate lists.
 
 Structure:
   1. Cell size s = max(2·r_max, extent/grid_dim) per axis — so any
@@ -26,7 +22,7 @@ Structure:
      lexicographically-positive neighbor offsets plus the self-offset
      (upper-triangle within a cell) — the dedup analog of the reference's
      ``right_edge`` rule. Each offset is a dense
-     [G, cell_capacity, cell_capacity] test: pure VPU work, no gathers.
+     [G, cell_capacity, cell_capacity] test: compares only, no gathers.
 
 Capacity knobs are static (XLA shapes): ``grid_dim`` cells per axis and
 ``cell_capacity`` slots per cell. A cell overflowing its capacity cannot be
@@ -35,12 +31,10 @@ with a bigger capacity, mirroring the reference's count-past-capacity
 retry contract (collision.cl:203-207).
 """
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 #: Neighbor offsets covering each unordered cell pair once: (0,0,0) handled
 #: separately with an upper-triangle mask; these 13 are the lexicographically
@@ -69,49 +63,19 @@ def _bitcast_to(x_uint, dtype):
     return jax.lax.bitcast_convert_type(x_uint.astype(jnp.uint64), jnp.float64)
 
 
-def _bitcast_from(x_float):
-    if x_float.dtype == jnp.float32:
-        return jax.lax.bitcast_convert_type(x_float, jnp.uint32)
-    return jax.lax.bitcast_convert_type(x_float, jnp.uint64).astype(jnp.uint32)
-
-
-def _cell_starts(cell_s, G):
-    """starts[c] = first index i with cell_s[i] >= c, for c in [0, G]
-    (the two-level windowed searchsorted from ops/offset.py, ~2 ms at 1M
-    vs ~16 ms for XLA's binary search)."""
-    from .ops.offset import sorted_bucket_starts
-
-    c = jnp.arange(G + 1, dtype=cell_s.dtype)
-    return sorted_bucket_starts(cell_s, c)
-
-
-def build_grid(coords, radii, grid_dim, cell_capacity, method="auto"):
+def build_grid(coords, radii, grid_dim, cell_capacity):
     """Bin spheres into a dense padded grid.
 
     Returns (bins, ok, ids_sorted) where bins is
     [grid_dim+2, grid_dim+2, grid_dim+2, cell_capacity, 8] in the coord
     dtype with a +inf halo border: lanes 0-2 = AABB lo, lane 3 = bitcast
     sphere id, lanes 4-6 = AABB hi, lane 7 = padding.
-
-    ``method``: "scatter" places rows with one XLA row-scatter (portable;
-    measured ~53 ms at 1M on v5e — scatter cost is per-element);
-    "compact" derives per-cell offsets from the sorted cell ids with the
-    Pallas streaming compaction and assembles bins with a wide-block
-    gather (vmapped dynamic_slice) — the TPU fast path. "auto" picks
-    compact on TPU float32, scatter elsewhere.
     """
     coords = jnp.asarray(coords)
     radii = jnp.asarray(radii)
     n = coords.shape[0]
     dt = coords.dtype
     G = grid_dim ** 3
-    if method == "auto":
-        method = (
-            "compact"
-            if (jax.default_backend() == "tpu" and dt == jnp.float32)
-            else "scatter"
-        )
-
     lo_s = jnp.min(coords, axis=0)
     hi_s = jnp.max(coords, axis=0)
     r_max = jnp.max(radii)
@@ -146,40 +110,20 @@ def build_grid(coords, radii, grid_dim, cell_capacity, method="auto"):
         axis=-1,
     )
 
-    if method == "compact":
-        starts = _cell_starts(cell_s, G)
-        occ = starts[1:] - starts[:-1]
-        ok = jnp.all(occ <= cell_capacity) if n else jnp.bool_(True)
+    # Rank within cell via a segment scan: the latest segment-start
+    # index at or before i, tracked with a cummax — fully dense.
+    iota = jnp.arange(n, dtype=jnp.int32)
+    seg_start = jax.lax.cummax(jnp.where(newseg, iota, 0), axis=0)
+    rank = iota - seg_start
+    ok = jnp.all(rank < cell_capacity) if n else jnp.bool_(True)
 
-        rowp = jnp.concatenate(
-            [row, jnp.full((cell_capacity, 8), jnp.inf, dt)]
-        )
-        # Monotone row-gather (indices sorted ascending): measured ~3x
-        # cheaper than the row-scatter on v5e. (A per-cell-DMA Pallas
-        # expansion was tried and rejected: Mosaic requires DMA slices
-        # lane-aligned to 128, and bin rows are 8 wide.)
-        k = jnp.arange(cell_capacity, dtype=jnp.int32)
-        idx = (starts[:-1, None] + k[None, :]).reshape(-1)
-        bins = jnp.take(rowp, idx, axis=0, indices_are_sorted=True)
-        bins = bins.reshape(G, cell_capacity, 8)
-        bins = jnp.where(
-            (k[None, :, None] < occ[:, None, None]), bins, jnp.inf
-        )
-    else:  # noqa: RET505 — scatter path pads below
-        # Rank within cell via a segment scan: the latest segment-start
-        # index at or before i, tracked with a cummax — fully dense.
-        iota = jnp.arange(n, dtype=jnp.int32)
-        seg_start = jax.lax.cummax(jnp.where(newseg, iota, 0), axis=0)
-        rank = iota - seg_start
-        ok = jnp.all(rank < cell_capacity) if n else jnp.bool_(True)
-
-        target = jnp.where(
-            rank < cell_capacity,
-            cell_s.astype(jnp.int32) * cell_capacity + rank,
-            G * cell_capacity,
-        )
-        bins = jnp.full((G * cell_capacity, 8), jnp.inf, dt)
-        bins = bins.at[target].set(row, mode="drop")
+    target = jnp.where(
+        rank < cell_capacity,
+        cell_s.astype(jnp.int32) * cell_capacity + rank,
+        G * cell_capacity,
+    )
+    bins = jnp.full((G * cell_capacity, 8), jnp.inf, dt)
+    bins = bins.at[target].set(row, mode="drop")
 
     bins = bins.reshape(grid_dim, grid_dim, grid_dim, cell_capacity, 8)
     # +inf halo so stencil shifts never wrap and never match.

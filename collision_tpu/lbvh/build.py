@@ -1,6 +1,6 @@
 """Karras (HPG 2012) parallel binary-radix-tree construction.
 
-TPU-native re-design of the reference's generateBVH/fillInternal kernels
+Re-design of the reference's generateBVH/fillInternal kernels
 (/root/reference/collision/collision.cl:42-121). The reference stores nodes as
 a packed 16-byte struct with a parent pointer, a right_edge, and a
 leaf-id/children union; XLA wants structure-of-arrays with static shapes, so

@@ -1,10 +1,10 @@
 """Bottom-up AABB refit, without atomics.
 
-TPU-native re-design of the reference's leafBounds/internalBounds kernels
+Re-design of the reference's leafBounds/internalBounds kernels
 (/root/reference/collision/collision.cl:128-162). The reference climbs
 leaf-to-root with an atomic per-node readiness flag (first arriver exits,
-second computes the union); TPUs have no global atomics, and a racy climb is
-the wrong shape for XLA anyway. Instead the refit is *level-synchronous*:
+second computes the union); XLA has no atomics to express that, and a racy
+climb is the wrong shape for it anyway. Instead the refit is *level-synchronous*:
 every round gathers both children's AABBs for all internal nodes at once and
 commits the union for exactly the nodes whose children are both ready. A
 round is three gathers + min/max + select over fixed-shape arrays, and the

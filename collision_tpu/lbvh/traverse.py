@@ -1,13 +1,13 @@
 """BVH pair-finding traversal with count-then-fill compaction.
 
-TPU-native re-design of the reference's traverse kernel
+Re-design of the reference's traverse kernel
 (/root/reference/collision/collision.cl:164-226). The reference runs one
 SIMT thread per query leaf, each with a private 64-entry stack, emitting
-pairs through a global atomic cursor. TPUs have neither per-lane divergence
-nor global atomics, so the traversal here is *lockstep*: every query leaf
+pairs through a global atomic cursor. XLA expresses neither per-thread
+control flow nor atomics, so the traversal here is *lockstep*: every query leaf
 advances through its own bounded stack simultaneously, with masked selects
 playing the role of divergence — the whole frontier is fixed-shape [n]
-arrays, which is exactly what the VPU wants.
+arrays that XLA compiles to plain vector code.
 
 Pair emission replaces the atomic cursor with a deterministic two-pass
 count-then-fill: pass 1 traverses counting hits per query; an exclusive scan

@@ -1,9 +1,9 @@
 """Gather / scatter by index.
 
-TPU-native equivalent of the reference's index kernels
+Equivalent of the reference's index kernels
 (/root/reference/collision/index.cl:1-13 + index.py): ``gather`` computes
 ``out[i] = in[idx[i]]`` and ``scatter`` computes ``out[idx[i]] = in[i]``.
-On TPU these are single XLA gather/scatter HLOs; the class exists for API
+These are single XLA gather/scatter HLOs; the class exists for API
 parity (applying a sort permutation to payload arrays).
 """
 

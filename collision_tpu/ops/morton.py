@@ -1,6 +1,6 @@
 """30-bit Morton (Z-order) encoding of 3D points.
 
-TPU-native equivalent of the reference's Morton kernels
+Equivalent of the reference's Morton kernels
 (/root/reference/collision/collision.cl:14-40): ``expand_bits`` is the same
 multiply-and-mask bit interleave, and ``morton_encode`` reproduces the exact
 quantization — normalize into the scene AABB, scale by 2**10 - 1 = 1023, clamp
@@ -48,10 +48,15 @@ def morton_encode(coords, lo, hi):
     Returns:
       uint32 array of shape coords.shape[:-1], each in [0, MAX_CODE].
 
-    The arithmetic runs in the coordinate dtype so float32 rounding matches
-    the reference exactly (collision.cl:22-31). Degenerate axes (hi == lo)
-    quantize to 0 instead of propagating NaN — a defined behavior the
-    reference leaves undefined.
+    The arithmetic runs in the coordinate dtype. Each point is scaled by
+    the reciprocal of the extent, ``((c - lo) * (1 / ext)) * 1023``: one
+    correctly rounded reciprocal per axis, then a subtract and two
+    multiplies per point, which round the same way on every backend. (A
+    per-point ``(c - lo) / ext`` does not: XLA's GPU code divides by a
+    broadcast operand through its reciprocal, so the codes of points near a
+    quantum boundary would depend on the device.) Degenerate axes
+    (hi == lo) quantize to 0 instead of propagating NaN — a defined
+    behavior the reference leaves undefined.
     """
     coords = jnp.asarray(coords)
     dt = coords.dtype
@@ -61,8 +66,8 @@ def morton_encode(coords, lo, hi):
 
     extent = hi - lo
     safe = extent > 0
-    pos = jnp.where(safe, (coords - lo) / jnp.where(safe, extent, 1), 0)
-    pos = jnp.clip(pos * scale, 0, scale)
+    inv = jnp.where(safe, 1 / jnp.where(safe, extent, 1), 0)
+    pos = jnp.clip((coords - lo) * inv * scale, 0, scale)
     q = pos.astype(jnp.uint32)
 
     x = expand_bits(q[..., 0])

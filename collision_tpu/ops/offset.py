@@ -1,6 +1,6 @@
 """Sorted-run offsets: CSR-style bucket start indices of a sorted array.
 
-TPU-native equivalent of the reference's offset kernel
+Equivalent of the reference's offset kernel
 (/root/reference/collision/offset.cl:3-12 + offset.py). The reference fills
 ``offsets[:] = n_values`` then has each thread compare adjacent values and
 write run starts; the vectorized equivalent is a ``searchsorted``: for every
@@ -23,7 +23,7 @@ def _count_less(table, buckets, strides):
 
     Each level subsamples every ``strides[0]``-th entry, recurses to locate
     the covering window, then resolves with a wide row-gather and a dense
-    compare-count — all full-bandwidth ops on TPU.
+    compare-count — all dense, full-bandwidth ops.
     """
     C = table.shape[0]
     if not strides or C <= 2 * strides[0]:
@@ -42,11 +42,10 @@ def _count_less(table, buckets, strides):
 
 
 def sorted_bucket_starts(values, buckets, strides=(64, 128)):
-    """searchsorted(values, buckets, side='left') built from TPU-fast ops.
+    """searchsorted(values, buckets, side='left') built from dense ops.
 
     XLA's searchsorted lowers to a binary search whose rounds serialize
-    scalar gathers — measured 18 ms for 179k queries into a 15.6k table
-    on v5e. This version never binary-searches: an n-level subsample
+    scalar gathers. This version never binary-searches: an n-level subsample
     pyramid (every ``strides[k]``-th key at level k) is resolved with
     dense compare-counts and wide row-gathers only. Pick more/smaller
     strides for very large tables so the top level stays dense-friendly.

@@ -1,9 +1,9 @@
 """N-ary tree reductions: generic Reducer plus Bounds (min/max) and Summer.
 
-TPU-native re-design of the reference's templated reduction
+Re-design of the reference's templated reduction
 (/root/reference/collision/reduce.py + reduce.cl, bounds.py, summer.py). The
 reference renders a Jinja2 accumulator spec into an OpenCL kernel with a
-grid-stride stage-1 and a single-group stage-2; on TPU a reduction is a single
+grid-stride stage-1 and a single-group stage-2; in XLA a reduction is a single
 fused XLA op, so the accumulator spec becomes a list of (init, combine)
 pairs applied with ``jnp`` reductions. ``ngroups``/``group_size`` are kept as
 validated constructor parameters purely for API parity — XLA picks its own
@@ -74,7 +74,7 @@ class Reducer:
         self.group_size = group_size
 
     def resize(self, ngroups=None, group_size=None):
-        """Update launch-geometry parameters (no buffers to reallocate on TPU).
+        """Update launch-geometry parameters (no buffers to reallocate).
 
         Unlike the reference (reduce.py:45-60, which forgets to reallocate when
         only ngroups grows — a latent bug noted in SURVEY.md §4), resize here

@@ -1,11 +1,10 @@
 """Exclusive prefix scan.
 
-TPU-native equivalent of the reference's multi-level Blelloch scan
+Equivalent of the reference's multi-level Blelloch scan
 (/root/reference/collision/scan.py + scan.cl + local_scan.cl). The reference
 hand-builds a pyramid of per-group block sums because OpenCL offers nothing
-above raw kernels; XLA compiles a prefix sum directly (and a tiled Pallas scan
-backs the radix sort's histogram pass in ops/sort.py), so the functional core
-here is one line. The ``PrefixScanner`` class keeps the reference's validated
+above raw kernels; XLA compiles a prefix sum directly, so the functional
+core here is a few lines. The ``PrefixScanner`` class keeps the reference's validated
 size/group_size parameters, ``block_lengths`` pyramid (golden values pinned by
 reference tests/test_scan_py.py:32-43), and resize contract for API parity.
 """
@@ -22,9 +21,9 @@ _SCAN_BLOCK = 4096
 def inclusive_scan(values):
     """Inclusive prefix sum of a 1-D array via two blocked passes.
 
-    XLA lowers a long ``cumsum`` to a log-depth reduce-window chain
-    (measured ~7 ms/M on v5e); per-block inner cumsums plus a cumsum of
-    block totals is ~10x faster and exactly associative for the modular
+    XLA can lower a long ``cumsum`` to a log-depth reduce-window chain;
+    per-block inner cumsums plus a cumsum of block totals keep each pass
+    short and are exactly associative for the modular
     unsigned semantics the reference's device scan has.
     """
     n = values.shape[0]
@@ -56,7 +55,7 @@ def exclusive_scan(values, axis=0):
     zero = jnp.zeros_like(
         jax.lax.slice_in_dim(inclusive, 0, 1, axis=axis))
     # Contiguous slice, NOT jnp.take(arange): a length-n take lowers to a
-    # general gather (~9 ns/element on v5e — it dominated the whole scan).
+    # general gather.
     shifted = jnp.concatenate(
         [zero,
          jax.lax.slice_in_dim(inclusive, 0, values.shape[axis] - 1,

@@ -1,13 +1,10 @@
 """Key / key-value sort.
 
-TPU-native equivalent of the reference's LSD radix sort
+Equivalent of the reference's LSD radix sort
 (/root/reference/collision/radix.py + radix.cl). The reference hand-rolls a
 multi-pass block-sort + histogram-scan + scatter because OpenCL has no sort
 primitive; XLA ships a fast stable sort (``lax.sort``), so the functional core
-delegates to it. A hand-written Pallas radix sort was deliberately NOT built:
-its scatter phase is per-element random writes — exactly the op the TPU lacks —
-and cannot beat ``lax.sort``'s measured 1-3 ms at 1M keys (docs/design.md,
-"Why not a Pallas radix sort?").
+delegates to it.
 
 ``RadixSorter`` preserves the reference's full validation surface —
 power-of-two group_size, size % (2*group_size) == 0, radix_bits dividing the

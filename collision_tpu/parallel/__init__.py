@@ -1,11 +1,9 @@
 from .sharded import collide_sharded, make_sharded_collider
 from .sharded_fill import fill_sharded, make_sharded_fill
-from .sharded_slabs import slab_count_sharded
 
 __all__ = [
     "collide_sharded",
     "make_sharded_collider",
     "fill_sharded",
     "make_sharded_fill",
-    "slab_count_sharded",
 ]

@@ -12,8 +12,8 @@ of the fixed-capacity buffer, and an all-reduce-min merges them (unwritten
 slots are 0xFFFFFFFF, so ``min`` is the union). The result is bit-identical
 to the single-device pipeline for any device count.
 
-Collectives ride ICI via ``shard_map`` over an explicit ``Mesh`` — the
-TPU-native replacement for what would have been NCCL/MPI plumbing.
+Collectives go through ``shard_map`` over an explicit ``Mesh``; XLA lowers
+them to NCCL on GPUs.
 """
 
 from functools import partial

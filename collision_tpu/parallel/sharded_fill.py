@@ -12,11 +12,9 @@ slice of the fixed-capacity buffer (0xFFFFFFFF elsewhere), and an
 all-reduce-min merges them. Bit-identical to the single-device
 ``run_fill`` for any device count.
 
-Collectives ride ICI via ``shard_map`` over an explicit ``Mesh``.
-Scaling note: this layer still replicates the sort (cheap at its
-portable-pipeline scale); the flagship slab engine's sharding
-(sharded_slabs.py) removes that seam entirely with an all_to_all
-bucket-exchange sort and a one-slab halo ppermute.
+Collectives go through ``shard_map`` over an explicit ``Mesh``. Scaling
+note: every device still repeats the sort (O(n log n)); only the
+candidate space is split.
 """
 
 import jax

@@ -1,10 +1,9 @@
 """Profiling / timing utilities.
 
 The reference's only instruments are OpenCL events and pytest-benchmark
-wall clocks (SURVEY.md §5); the TPU equivalents are XLA profiler traces and
-fetch-synchronized step timing. On some remote TPU backends
-``jax.block_until_ready`` does not actually block, so ``sync`` forces a
-tiny device-to-host fetch — the only reliable completion barrier.
+wall clocks (SURVEY.md §5); the equivalents here are XLA profiler traces
+and step timing that ends in ``jax.block_until_ready`` (JAX returns before
+the device finishes, so a timing without it measures the enqueue).
 """
 
 import contextlib
@@ -14,12 +13,10 @@ import numpy as np
 
 
 def sync(tree):
-    """Force completion of every array in a pytree; returns the tree."""
+    """Wait until every array in a pytree is computed; returns the tree."""
     import jax
 
-    for leaf in jax.tree_util.tree_leaves(tree):
-        np.asarray(jax.device_get(leaf)).ravel()[:1]
-    return tree
+    return jax.block_until_ready(tree)
 
 
 @contextlib.contextmanager
@@ -44,7 +41,7 @@ def trace(log_dir):
 
 
 def time_fn(fn, *args, rounds=10, warmup=3):
-    """Median wall-clock ms of ``fn(*args)`` with fetch-synchronization."""
+    """Median wall-clock ms of ``fn(*args)``, each call synchronized."""
     for _ in range(warmup):
         sync(fn(*args))
     times = []

@@ -1,12 +1,11 @@
-"""Moving-spheres simulation loop, fully on-chip.
+"""Moving-spheres simulation loop, fully on the device.
 
 The reference has no sim loop — its README frames per-frame re-use of the
-Collider, and BASELINE.json config 5 pins the target: per-step re-sort +
-LBVH rebuild + traversal for many steps, fully jitted with no host
-round-trips. Here the whole loop is one ``lax.scan`` over the jitted collide
+Collider: per-step re-sort and rebuild for many steps. Here, fully jitted
+with no host round-trips, the whole loop is one ``lax.scan`` over the collide
 step: positions integrate and reflect off the unit box, every step rebuilds
 the broad phase from scratch and counts collisions, and nothing leaves the
-chip until the final (positions, per-step counts) land. The one result
+device until the final (positions, per-step counts) land. The one result
 users actually *read* pairs from — the capacity > 0 final fill — gets the
 Collider-style host retry (collide_exact) when the call is eager, so a
 clustering end state is re-run with exact knobs instead of returning a
@@ -23,7 +22,7 @@ from .collider import collide, collide_exact
 
 @partial(jax.jit, static_argnames=("n_steps", "method"))
 def _simulate_scan(coords, velocities, radii, n_steps, dt, lo, hi, method):
-    """The on-chip part: n_steps of integrate → reflect → count."""
+    """The on-device part: n_steps of integrate → reflect → count."""
 
     def step(carry, _):
         c, v, ok = carry
@@ -56,11 +55,10 @@ def simulate(coords, velocities, radii, n_steps, dt=0.01, lo=0.0, hi=1.0,
       lo, hi: axis-aligned box walls; spheres reflect off them.
       capacity: 0 counts collisions per step (the sim-loop benchmark shape);
         > 0 additionally returns the final step's pairs.
-      method: collide engine per step — "auto" (measured-crossover
-        routing: slab for large count-only, column otherwise), "slab"
-        (round-3 sparse fast path), "column", "hetero" (mixed radii),
-        "bvh" (always exact) or "grid" (round-1 engine). Static-capacity
-        overflow in any step surfaces via the returned ``ok`` flag.
+      method: collide engine per step — "auto"/"column" (run-expansion
+        pipeline), "grid" (dense stencil count) or "bvh" (always exact).
+        Static-capacity overflow in any step surfaces via the returned
+        ``ok`` flag.
 
         .. note:: in-scan steps use fixed default knobs with no retry,
            so clustered scenes can return ``ok=False`` (per-step counts

@@ -1,7 +1,9 @@
 from .oracle import (
-    brute_force_collisions, brute_force_count, pair_array_to_set,
+    blocked_collisions, brute_force_collisions, brute_force_count,
+    pair_array_to_set,
 )
 
 __all__ = [
-    "brute_force_collisions", "brute_force_count", "pair_array_to_set",
+    "blocked_collisions", "brute_force_collisions", "brute_force_count",
+    "pair_array_to_set",
 ]

@@ -1,11 +1,10 @@
 """Small dtype / size utilities.
 
-TPU-native re-design of the reference's host-side helpers
+Re-design of the reference's host-side helpers
 (/root/reference/collision/misc.py:28-71). The OpenCL-specific pieces
 (``dtype_decl`` producing OpenCL C type names, ``Program`` compilation) have no
-TPU equivalent — XLA compiles jitted functions — but the arithmetic helpers and
-the "a 3-vector occupies 4 slots" padding rule carry over, because padded
-vector layouts are also what the TPU VPU wants (lane-aligned widths).
+equivalent — XLA compiles jitted functions — but the arithmetic helpers and
+the "a 3-vector occupies 4 slots" padding rule carry over for API parity.
 """
 
 from functools import reduce

@@ -3,9 +3,9 @@
 The reference runs its suite on PoCL (a CPU OpenCL implementation) so the
 same tests run with or without a GPU (reference Dockerfile `cpu` stage);
 here the CPU JAX backend plays that role, and 8 virtual host devices let the
-multi-chip sharding path compile and execute without TPU hardware. x64 is
+multi-device sharding paths compile and execute without GPUs. x64 is
 enabled so the float64/uint64 dtype matrix from the reference tests carries
-over (TPU production paths use f32/u32).
+over (the GPU paths users time run f32/u32).
 """
 
 import os
@@ -21,8 +21,7 @@ if "xla_force_host_platform_device_count" not in _flags:
 import jax
 import pytest
 
-# The env var alone can be overridden by externally-registered platform
-# plugins; the config update is authoritative.
+# Authoritative even when JAX_PLATFORMS names another platform.
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 

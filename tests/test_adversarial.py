@@ -1,7 +1,7 @@
 """Adversarial scenes: cross-engine exactness under hostile distributions.
 
-Both engines must produce the exact oracle pair set for scenes chosen to
-stress their weak points: duplicate positions and Morton ties (the BVH
+The grid, BVH and column engines must each produce the exact oracle pair
+set for scenes chosen to stress their weak points: duplicate positions and Morton ties (the BVH
 tie-break), clustered blobs (grid cell overflow / deep trees), power-law
 radii (grid cell sizing), lattice alignment (boundary/strict-overlap
 ties), huge magnitudes and tiny extents (float precision), and degenerate
@@ -13,40 +13,6 @@ import pytest
 
 from collision_tpu import collide
 from collision_tpu.testing import brute_force_collisions, pair_array_to_set
-
-
-def _slab_exact(coords, radii, cap):
-    """Slab engine (interpret-mode Pallas kernels) with the honest retry
-    walk: default gx first, then the single-slab configuration whose
-    capacities can never overflow, escalating rows-per-window each time
-    — ok=False is only ever a detected-knob report, so some rung must
-    reach ok=True and that rung must be oracle-exact."""
-    from collision_tpu import interpret_kernels
-    from collision_tpu.kernels.sweep import RPW_LADDER
-
-    with interpret_kernels():
-        for gx in (None, 1):
-            for rpw in RPW_LADDER[:8]:
-                rs = collide(jnp.asarray(coords), jnp.asarray(radii), cap,
-                             method="slab", gx=gx, rpw=rpw)
-                if bool(rs.ok):
-                    return rs
-    raise AssertionError("slab engine never reached ok=True")
-
-
-def _hetero_exact(coords, radii, cap):
-    """Hetero engine (interpret mode) through the public collide surface,
-    walking the rows-per-window ladder as Collider._retry_exact does."""
-    from collision_tpu import interpret_kernels
-    from collision_tpu.kernels.sweep import RPW_LADDER
-
-    with interpret_kernels():
-        for rpw in RPW_LADDER[:8]:
-            rh = collide(jnp.asarray(coords), jnp.asarray(radii), cap,
-                         method="hetero", rpw=rpw)
-            if bool(rh.ok):
-                return rh
-    raise AssertionError("hetero engine never reached ok=True")
 
 
 def _check_both_engines(coords, radii, grid_dim=8, cell_capacity=None):
@@ -72,16 +38,6 @@ def _check_both_engines(coords, radii, grid_dim=8, cell_capacity=None):
     assert pair_array_to_set(rg.pairs, rg.count) == expected
     assert pair_array_to_set(rb.pairs, rb.count) == expected
     assert pair_array_to_set(rc.pairs, rc.count) == expected
-    # The flagship slab engine faces the same battery (interpret-mode
-    # Pallas kernels — the code that runs compiled on TPU).
-    rs = _slab_exact(coords, radii, cap)
-    assert int(rs.count) == len(expected)
-    assert pair_array_to_set(rs.pairs, rs.count) == expected
-    # And the radius-agnostic hetero engine, where it applies (n > 64).
-    if n > 64:
-        rh = _hetero_exact(coords, radii, cap)
-        assert int(rh.count) == len(expected)
-        assert pair_array_to_set(rh.pairs, rh.count) == expected
 
 
 def test_clustered_blobs():
@@ -149,66 +105,6 @@ def test_many_duplicates():
     coords = base[rng.randint(0, 10, 120)]
     radii = rng.uniform(0, 0.1, 120).astype("float32")
     _check_both_engines(coords, radii)
-
-
-def _power_law_scene(n, seed=11):
-    rng = np.random.RandomState(seed)
-    coords = rng.random((n, 3)).astype("float32")
-    radii = (0.004 * (1 + rng.pareto(1.2, n))).clip(0, 0.35)\
-        .astype("float32")
-    return coords, radii
-
-
-def test_auto_routes_hetero_eagerly(monkeypatch):
-    """Eager ``collide(..., method="auto")`` on a heterogeneous-radii
-    scene routes to the hetero engine and returns an exact ok=True
-    result — the public-API capability the reference's radius-agnostic
-    traversal provides (collision.cl:174-226)."""
-    from collision_tpu import collider, interpret_kernels
-
-    coords, radii = _power_law_scene(700)
-    expected = brute_force_collisions(coords, radii)
-    cap = len(expected) + 8
-    # The probe itself: this scene's radius spread is heterogeneous.
-    monkeypatch.setattr(collider, "HETERO_AUTO_MIN", 256)
-    assert collider._route_hetero_eager(
-        jnp.asarray(coords), jnp.asarray(radii), "interpret")
-    with interpret_kernels():
-        res = collide(jnp.asarray(coords), jnp.asarray(radii), cap,
-                      rpw=4)
-    assert bool(res.ok)
-    assert int(res.count) == len(expected)
-    assert pair_array_to_set(res.pairs, res.count) == expected
-    # A uniform scene must NOT pay the hetero engine.
-    rng = np.random.RandomState(12)
-    uradii = rng.uniform(0.01, 0.02, 700).astype("float32")
-    assert not collider._route_hetero_eager(
-        jnp.asarray(coords), jnp.asarray(uradii), "interpret")
-
-
-def test_collider_power_law_no_bvh(monkeypatch):
-    """A power-law scene through the public Collider retry chain reaches
-    an exact result via the hetero engine, never touching the
-    seconds-scale BVH fallback (VERDICT r3 item 1)."""
-    from collision_tpu import Collider, interpret_kernels
-
-    coords, radii = _power_law_scene(900, seed=13)
-    expected = brute_force_collisions(coords, radii)
-    cap = len(expected) + 8
-
-    def _no_bvh(self, *a, **k):
-        raise AssertionError("BVH fallback invoked on a hetero scene")
-
-    monkeypatch.setattr(Collider, "_bvh_exact", _no_bvh)
-    c = Collider(len(coords))
-    with interpret_kernels():
-        count, pairs = c.get_collisions(coords, radii, cap)
-    assert int(count) == len(expected)
-    assert pair_array_to_set(pairs, count) == expected
-    # Count-only through the same chain.
-    with interpret_kernels():
-        count2 = c.get_collisions(coords, radii, 0, collisions=None)
-    assert int(count2) == len(expected)
 
 
 @pytest.mark.parametrize("seed", range(4))

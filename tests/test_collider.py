@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from collision_tpu import Collider, collide
+from collision_tpu import Collider, collide, collide_exact
 from collision_tpu.testing import brute_force_collisions, pair_array_to_set
 
 
@@ -171,17 +171,25 @@ def test_default_grid_config():
     assert mc2 >= 16
 
 
-def test_enable_compilation_cache(tmp_path):
-    from collision_tpu.utils import enable_compilation_cache
-    p = enable_compilation_cache(str(tmp_path / "xla"))
+def test_enable_compilation_cache(tmp_path, monkeypatch):
+    # JAX_COMPILATION_CACHE_DIR, where set, is the cache and no other
+    # directory is set in code.
     import os
-    assert os.path.isdir(p)
-    # Restore: leaving the persistent cache pointed at a pytest tmp dir
-    # makes every later >=1s compile in the suite serialize+write its
-    # executable there (observed: a zstd segfault inside
-    # put_executable_and_time mid-suite on the 1-core box).
+
     import jax
-    jax.config.update("jax_compilation_cache_dir", None)
+
+    from collision_tpu.utils import enable_compilation_cache
+    want = str(tmp_path / "xla")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    try:
+        p = enable_compilation_cache()
+        assert p == want and os.path.isdir(p)
+        assert jax.config.jax_compilation_cache_dir == want
+    finally:
+        # Leaving the persistent cache pointed at a pytest tmp dir makes
+        # every later >=1s compile in the worker write its executable
+        # there.
+        jax.config.update("jax_compilation_cache_dir", None)
 
 
 def test_overflowed_false_in_count_only_mode():
@@ -219,60 +227,112 @@ def test_constructor_rejects_invalid_params(bad):
         Collider(**kwargs)
 
 
+def _wide_window_scene(n=2000, seed=11):
+    # One column (gxy=1 at this n) and r_max = 0.05: ~150 conservative
+    # candidates per sphere, past the default bound of max(2^17, 32n) —
+    # so the first shot reports ok=False and the retry ladder runs.
+    rng = np.random.RandomState(seed)
+    coords = rng.random((n, 3)).astype(np.float32)
+    radii = rng.uniform(0, 0.05, n).astype(np.float32)
+    return coords, radii
+
+
 def test_retry_exact_plan_stats_interpret_count():
-    # VERDICT r2 item 4: the plan-stat escalation branch of
-    # Collider._retry_exact used to be TPU-gated and untested. Under
-    # interpret_kernels() the same code runs on CPU via the Pallas
-    # interpreter: a clustered scene overloads the default column
-    # capacity (ok=False), and the retry must converge to the exact
-    # count using the plan's own statistics.
-    from collision_tpu import interpret_kernels
-
-    n = 2000
-    np.random.seed(11)
-    # Everything inside one tiny xy patch: a single column holds all n
-    # spheres, far beyond default_column_config's col_capacity.
-    coords = np.random.random((n, 3)).astype(np.float32)
-    coords[:, :2] *= 1e-3
-    radii = np.full(n, 5e-4, np.float32)
+    # Collider._retry_exact's candidate rung: the first collide reports
+    # ok=False, one candidate_count sizes the bound, and the re-run is
+    # exact.
+    coords, radii = _wide_window_scene()
     expected = brute_force_collisions(coords, radii)
+    first = collide(jnp.asarray(coords), jnp.asarray(radii), 0)
+    assert not bool(first.ok)
 
-    with interpret_kernels():
-        collider = Collider(n, method="column")
-        count = collider.get_collisions(coords, radii, 0, collisions=None)
+    collider = Collider(len(coords), method="column")
+    count = collider.get_collisions(coords, radii, 0, collisions=None)
+    assert collider.last_rung == "candidates"
     assert int(count) == len(expected)
 
 
 def test_retry_exact_plan_stats_interpret_fill():
-    # Same forced-retry scenario, fill mode: the mask-fill path must
-    # return the exact pair set after knob escalation.
-    from collision_tpu import interpret_kernels
-
-    n = 1500
-    np.random.seed(12)
-    coords = np.random.random((n, 3)).astype(np.float32)
-    coords[:, :2] *= 1e-3
-    radii = np.full(n, 4e-4, np.float32)
+    # Same forced-retry scenario, fill mode: the candidate rung must
+    # return the exact pair set.
+    coords, radii = _wide_window_scene(n=1500, seed=12)
     expected = brute_force_collisions(coords, radii)
     assert expected  # scene must actually collide
 
-    with interpret_kernels():
-        collider = Collider(n, method="column")
-        count, pairs = collider.get_collisions(
-            coords, radii, len(expected) + 16)
+    collider = Collider(len(coords), method="column")
+    count, pairs = collider.get_collisions(
+        coords, radii, len(expected) + 16)
+    assert collider.last_rung == "candidates"
     assert int(count) == len(expected)
     assert pair_array_to_set(pairs, count) == expected
 
 
+@pytest.mark.parametrize("capacity", [0, 1, 4096])
+def test_retry_exact_bvh_rung(monkeypatch, capacity):
+    # A candidate bound past CAND_MAX falls back to the LBVH, which is
+    # exact at any radius spread; count-past-capacity holds there too.
+    monkeypatch.setattr(Collider, "CAND_MAX", 1 << 10)
+    coords, radii = _wide_window_scene(seed=13)
+    expected = brute_force_collisions(coords, radii)
+    collider = Collider(len(coords))
+    if capacity == 0:
+        count = collider.get_collisions(coords, radii, 0, collisions=None)
+    else:
+        count, pairs = collider.get_collisions(coords, radii, capacity)
+        k = min(capacity, len(expected))
+        got = pair_array_to_set(pairs, k)
+        assert len(got) == k and got <= expected
+    assert collider.last_rung == "bvh"
+    assert int(count) == len(expected)
+
+
+def test_collide_exact_matches_collider_rungs():
+    coords, radii = _wide_window_scene(n=1000, seed=14)
+    expected = brute_force_collisions(coords, radii)
+    res = collide_exact(coords, radii, len(expected) + 8)
+    assert bool(res.ok)
+    assert int(res.count) == len(expected)
+    assert pair_array_to_set(res.pairs, res.count) == expected
+
+
+def test_first_shot_rung_on_uniform_scene():
+    coords, radii = _random_scene(500, "float32")
+    collider = Collider(500)
+    count = collider.get_collisions(coords, radii, 0, collisions=None)
+    assert collider.last_rung == "first"
+    assert int(count) == len(brute_force_collisions(coords, radii))
+
+
+@pytest.mark.parametrize("method", ["slab", "hetero", "sweep"])
+def test_removed_methods_raise(method):
+    with pytest.raises(ValueError, match="auto, column, grid, bvh"):
+        collide(jnp.zeros((4, 3), jnp.float32), jnp.ones(4, jnp.float32),
+                0, method=method)
+    with pytest.raises(ValueError, match="auto, column, grid, bvh"):
+        Collider(4, method=method)
+
+
+def test_auto_routes_to_column():
+    # "auto" runs the column pipeline: same compiled program, same
+    # deterministic pair buffer, at every n.
+    coords, radii = _random_scene(300, "float32")
+    c, r = jnp.asarray(coords), jnp.asarray(radii)
+    auto = collide(c, r, 512)
+    col = collide(c, r, 512, method="column")
+    assert bool(auto.ok)
+    np.testing.assert_array_equal(np.asarray(auto.pairs),
+                                  np.asarray(col.pairs))
+    assert int(auto.count) == int(col.count)
+
+
 def test_retry_terminates_on_unsplittable_cluster():
-    # Regression for the occupancy-escalation retry: when every sphere
-    # lands in one grid cell no cell_capacity below n can hold them, and
-    # default_grid_config bottoms out at grid_dim=4 returning the same
-    # config forever. get_collisions must detect the lack of progress and
-    # break to the exact BVH engine instead of looping.
-    n = 65536  # >= GRID_AUTO_THRESHOLD so "auto" engages the grid engine
+    # Every sphere at one point: ~n^2/2 conservative candidates, past
+    # CAND_MAX and past the int32 guard, so the ladder must go straight
+    # to the exact BVH engine instead of looping.
+    n = 65536
     coords = np.full((n, 3), 0.5, "float32")
     radii = np.zeros(n, "float32")  # point AABBs: strict overlap = none
     collider = Collider(n)
     count = collider.get_collisions(coords, radii, 0, collisions=None)
+    assert collider.last_rung == "bvh"
     assert int(count) == 0

@@ -1,13 +1,12 @@
 """Run-expansion fill engine (fill.py): scatter-free pair enumeration.
 
-Pure-XLA pipeline, so these tests run natively on CPU — no Pallas
-interpreter needed. Parity contract pinned: exact unordered unique pairs
+Pure-XLA pipeline, so these tests run natively on CPU. Parity contract
+pinned: exact unordered unique pairs
 under strict AABB overlap (reference collision.cl:164-166, 198-215),
 true-total-past-capacity, deterministic order, float64 support.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
@@ -138,355 +137,3 @@ def test_sorted_bucket_starts_multilevel():
         got = np.asarray(sorted_bucket_starts(
             jnp.asarray(vals), jnp.asarray(bks), strides=strides))
         np.testing.assert_equal(got, np.searchsorted(vals, bks, "left"))
-
-
-# ---- mask fill (gather-free TPU emission; interpreter mode on CPU) ----
-
-from collision_tpu.columns import plan_columns  # noqa: E402
-from collision_tpu.fill import mask_fill  # noqa: E402
-from collision_tpu.kernels.sweep import RPW_LADDER, sweep_masks  # noqa: E402
-
-
-def _mask_check(n, seed, gxy, cc, sr, rscale=1.2, cap_extra=9):
-    rng = np.random.RandomState(seed)
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, rscale / np.sqrt(n), n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    cap = max(len(expected) + cap_extra, 16)
-    plan = plan_columns(jnp.asarray(coords), jnp.asarray(radii), gxy, cc, sr)
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_needed))
-    ida, idb, total, ok = mask_fill(
-        jnp.asarray(coords), jnp.asarray(radii), cap, gxy, cc, sr,
-        rpw=rpw, interpret=True)
-    assert bool(ok)
-    assert int(total) == len(expected)
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(ida)[:int(total)],
-                           np.asarray(idb)[:int(total)])}
-    assert got == expected
-    assert (np.asarray(ida)[int(total):] == 0xFFFFFFFF).all()
-    assert (np.asarray(idb)[int(total):] == 0xFFFFFFFF).all()
-
-
-@pytest.mark.parametrize("n,seed,gxy,cc,sr", [
-    (200, 0, 2, 192, 4),
-    (500, 1, 3, 192, 4),
-    (1000, 2, 4, 128, 6),
-    (600, 9, 2, 512, 8),
-    (2000, 3, 4, 640, 8),
-])
-def test_mask_fill_parity(n, seed, gxy, cc, sr):
-    _mask_check(n, seed, gxy, cc, sr)
-
-
-def test_mask_fill_single_column_dense():
-    # 22k pairs through one column: multi-row windows, rpw escalation,
-    # many emission blocks.
-    _mask_check(800, 5, 1, 832, 9, rscale=6)
-
-
-def test_mask_fill_overflow_contract():
-    rng = np.random.RandomState(3)
-    n = 300
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, 0.15, n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    ida, idb, total, ok = mask_fill(
-        jnp.asarray(coords), jnp.asarray(radii), 7, 2, 320, 6,
-        rpw=8, interpret=True)
-    assert bool(ok)
-    assert int(total) == len(expected)
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(ida), np.asarray(idb))}
-    assert got <= expected and len(got) == 7
-
-
-def test_mask_fill_rpw_insufficient_flags_not_ok():
-    # rows_needed > rpw must surface ok=False, never a silent undercount
-    # being trusted.
-    rng = np.random.RandomState(5)
-    n = 400
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0.1, 0.3, n).astype("float32")
-    plan = plan_columns(jnp.asarray(coords), jnp.asarray(radii), 2, 448, 8)
-    assert bool(plan.ok) and int(plan.rows_needed) > 1
-    _, _, _, ok = mask_fill(
-        jnp.asarray(coords), jnp.asarray(radii), 16, 2, 448, 8,
-        rpw=1, interpret=True)
-    assert not bool(ok)
-
-
-def test_sweep_masks_popcount_equals_count():
-    rng = np.random.RandomState(12)
-    n = 700
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, 1.5 / np.sqrt(n), n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    plan = plan_columns(jnp.asarray(coords), jnp.asarray(radii), 3, 320, 6)
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_needed))
-    B = sweep_masks(plan, rpw=rpw, interpret=True)
-    pop = int(np.asarray(jax.lax.population_count(B.reshape(-1))).sum())
-    assert pop == len(expected)
-
-
-def test_mask_fill_multi_group():
-    # mc=64 with rpw=8 splits the mask kernel's output into 2 chunk
-    # groups (mask_groups) — the grouped flat-word decode must stay
-    # bit-exact.
-    from collision_tpu.kernels.sweep import mask_groups
-
-    assert mask_groups(64, 8)[1] > 1
-    rng = np.random.RandomState(21)
-    n = 3500
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, 0.02, n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    ida, idb, total, ok = mask_fill(
-        jnp.asarray(coords), jnp.asarray(radii), len(expected) + 9,
-        1, 4096, 32, rpw=8, interpret=True)
-    assert bool(ok)
-    assert int(total) == len(expected)
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(ida)[:int(total)],
-                           np.asarray(idb)[:int(total)])}
-    assert got == expected
-
-
-def test_mask_fill_count_only():
-    rng = np.random.RandomState(2)
-    n = 400
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, 0.08, n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    ida, idb, total, ok = mask_fill(
-        jnp.asarray(coords), jnp.asarray(radii), 0, 2, 320, 6,
-        rpw=4, interpret=True)
-    assert bool(ok)
-    assert int(total) == len(expected)
-    assert ida.shape == (0,) and idb.shape == (0,)
-
-
-@pytest.mark.parametrize("seed", range(6))
-def test_mask_fill_fuzz(seed):
-    # Random scene scale, density, and column config; knobs sized from
-    # the plan's own stats (the Collider's retry recipe) — the engine
-    # must be exact for every accepted configuration.
-    rng = np.random.RandomState(300 + seed)
-    n = int(rng.randint(50, 1200))
-    scale = 10.0 ** rng.uniform(-2, 2)
-    coords = (rng.random((n, 3)) * scale).astype("float32")
-    radii = (rng.random(n) * scale * rng.uniform(0.005, 0.15)).astype(
-        "float32")
-    gxy = int(rng.choice([1, 2, 3, 5]))
-    expected = brute_force_collisions(coords, radii)
-
-    cc, sr = 64, 4
-    for _ in range(4):
-        plan = plan_columns(
-            jnp.asarray(coords), jnp.asarray(radii), gxy, cc, sr)
-        if bool(plan.ok):
-            break
-        cc = int(np.ceil(int(plan.max_col) / 64) * 64) + 64
-        sr = int(plan.max_slab_rows) + 2
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_needed))
-    cap = max(len(expected) + int(rng.randint(0, 50)), 8)
-    ida, idb, total, ok = mask_fill(
-        jnp.asarray(coords), jnp.asarray(radii), cap, gxy, cc, sr,
-        rpw=rpw, interpret=True)
-    assert bool(ok)
-    assert int(total) == len(expected)
-    k = min(int(total), cap)
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(ida)[:k], np.asarray(idb)[:k])}
-    if k == int(total):
-        assert got == expected
-    else:
-        assert got <= expected and len(got) == k
-
-
-# ---- blocked big-capacity emission (fill._mask_fill_emit_big) ----
-#
-# The single-shot sparse emission materializes capacity-sized tables —
-# a 110M-slot dense fill would allocate [capacity, 128] searchsorted
-# windows (56 GB, measured OOM round 3). Huge capacities route through
-# the blocked emission; these tests force it (emit_blk) on small scenes
-# and pin bit-identical output against the single-shot path.
-
-from collision_tpu.fill import slab_mask_fill  # noqa: E402
-from collision_tpu.slabs import plan_slabs  # noqa: E402
-
-
-def _both_paths(n, seed, gxy, cc, sr, blk, rscale=1.2, cap_extra=9,
-                capacity=None):
-    rng = np.random.RandomState(seed)
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, rscale / np.sqrt(n), n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    cap = capacity if capacity is not None \
-        else max(len(expected) + cap_extra, 16)
-    plan = plan_columns(jnp.asarray(coords), jnp.asarray(radii), gxy, cc, sr)
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_needed))
-    small = mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap, gxy,
-                      cc, sr, rpw=rpw, interpret=True)
-    big = mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap, gxy,
-                    cc, sr, rpw=rpw, interpret=True, emit_blk=blk)
-    return expected, small, big
-
-
-@pytest.mark.parametrize("n,seed,gxy,cc,sr,blk", [
-    (200, 0, 2, 192, 4, 32),
-    (1000, 2, 4, 128, 6, 64),
-    (2000, 3, 4, 640, 8, 128),
-    (600, 9, 2, 512, 8, 7),    # blk not dividing capacity
-])
-def test_big_emit_bit_identical_to_single_shot(n, seed, gxy, cc, sr, blk):
-    expected, small, big = _both_paths(n, seed, gxy, cc, sr, blk)
-    ida_s, idb_s, tot_s, ok_s = small
-    ida_b, idb_b, tot_b, ok_b = big
-    assert bool(ok_s) and bool(ok_b)
-    assert int(tot_s) == int(tot_b) == len(expected)
-    # Same deterministic order (global mask-word order), element for
-    # element — not just set equality.
-    np.testing.assert_array_equal(np.asarray(ida_s), np.asarray(ida_b))
-    np.testing.assert_array_equal(np.asarray(idb_s), np.asarray(idb_b))
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(ida_b)[:int(tot_b)],
-                           np.asarray(idb_b)[:int(tot_b)])}
-    assert got == expected
-
-
-def test_big_emit_past_capacity_prefix():
-    # capacity < total: the true total keeps counting, the materialized
-    # prefix matches the single-shot path exactly.
-    expected, small, big = _both_paths(1000, 2, 4, 128, 6, 16, capacity=32)
-    ida_s, idb_s, tot_s, ok_s = small
-    ida_b, idb_b, tot_b, ok_b = big
-    assert int(tot_s) == int(tot_b) == len(expected) > 32
-    np.testing.assert_array_equal(np.asarray(ida_s), np.asarray(ida_b))
-    np.testing.assert_array_equal(np.asarray(idb_s), np.asarray(idb_b))
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(ida_b), np.asarray(idb_b))}
-    assert got <= expected and len(got) == 32
-
-
-def test_big_emit_slab_parity():
-    rng = np.random.RandomState(11)
-    n = 1200
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, 1.2 / np.sqrt(n), n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    gx, cc, sr = 4, 448, 9
-    plan = plan_slabs(jnp.asarray(coords), jnp.asarray(radii), gx, cc, sr)
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_rolled))
-    cap = len(expected) + 5
-    sm = slab_mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap,
-                        gx, cc, sr, rpw=rpw, interpret=True)
-    bg = slab_mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap,
-                        gx, cc, sr, rpw=rpw, interpret=True, emit_blk=96)
-    assert int(sm[2]) == int(bg[2]) == len(expected)
-    assert bool(sm[3]) and bool(bg[3])
-    np.testing.assert_array_equal(np.asarray(sm[0]), np.asarray(bg[0]))
-    np.testing.assert_array_equal(np.asarray(sm[1]), np.asarray(bg[1]))
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(bg[0])[:len(expected)],
-                           np.asarray(bg[1])[:len(expected)])}
-    assert got == expected
-
-
-# ---- in-kernel streaming emission (kernels/pair_emit.py) ----
-#
-# The Pallas second pass: mask rows stream once through VMEM and pairs
-# leave through a carried-cursor staging ring — the big-fill workhorse
-# (auto above BIG_FILL_THRESHOLD when the id table fits VMEM). These
-# force it (emit_mode="kernel") on small scenes and pin output against
-# the single-shot sparse path: identical deterministic order, both mask
-# layouts, capacity clipping.
-
-
-def _kernel_vs_sparse(n, seed, gxy, cc, sr, rscale=1.2, capacity=None):
-    rng = np.random.RandomState(seed)
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, rscale / np.sqrt(n), n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    cap = capacity if capacity is not None else max(len(expected) + 9, 16)
-    plan = plan_columns(jnp.asarray(coords), jnp.asarray(radii), gxy, cc, sr)
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_needed))
-    sp = mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap, gxy,
-                   cc, sr, rpw=rpw, interpret=True, emit_mode="sparse")
-    kn = mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap, gxy,
-                   cc, sr, rpw=rpw, interpret=True, emit_mode="kernel")
-    return expected, sp, kn
-
-
-@pytest.mark.parametrize("n,seed,gxy,cc,sr", [
-    (200, 0, 2, 192, 4),
-    (1000, 2, 4, 128, 6),
-    (600, 9, 2, 512, 8),
-])
-def test_pair_emit_kernel_bit_identical(n, seed, gxy, cc, sr):
-    expected, sp, kn = _kernel_vs_sparse(n, seed, gxy, cc, sr)
-    assert bool(sp[3]) and bool(kn[3])
-    assert int(sp[2]) == int(kn[2]) == len(expected)
-    np.testing.assert_array_equal(np.asarray(sp[0]), np.asarray(kn[0]))
-    np.testing.assert_array_equal(np.asarray(sp[1]), np.asarray(kn[1]))
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(kn[0])[:len(expected)],
-                           np.asarray(kn[1])[:len(expected)])}
-    assert got == expected
-
-
-def test_pair_emit_kernel_past_capacity_prefix():
-    # capacity < total: true total keeps counting (collision.cl:203-207)
-    # and the materialized prefix is the same deterministic prefix.
-    expected, sp, kn = _kernel_vs_sparse(1000, 2, 4, 128, 6, capacity=32)
-    assert int(sp[2]) == int(kn[2]) == len(expected) > 32
-    np.testing.assert_array_equal(np.asarray(sp[0]), np.asarray(kn[0]))
-    np.testing.assert_array_equal(np.asarray(sp[1]), np.asarray(kn[1]))
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(kn[0]), np.asarray(kn[1]))}
-    assert got <= expected and len(got) == 32
-
-
-def test_pair_emit_kernel_dense_column():
-    # 22k pairs through one column: rows needing many 128-slot vector
-    # steps, multiple staging flushes, unaligned cursor carries.
-    expected, sp, kn = _kernel_vs_sparse(800, 5, 1, 832, 9, rscale=6)
-    assert bool(kn[3])
-    assert int(kn[2]) == len(expected)
-    np.testing.assert_array_equal(np.asarray(sp[0]), np.asarray(kn[0]))
-    np.testing.assert_array_equal(np.asarray(sp[1]), np.asarray(kn[1]))
-
-
-def test_pair_emit_kernel_slab_rolled_layout():
-    # The rolled (slab) mask layout: unaligned window starts exercise
-    # the in-kernel roll-merge id reads on the b side.
-    rng = np.random.RandomState(11)
-    n = 1200
-    coords = rng.random((n, 3)).astype("float32")
-    radii = rng.uniform(0, 1.2 / np.sqrt(n), n).astype("float32")
-    expected = brute_force_collisions(coords, radii)
-    gx, cc, sr = 4, 448, 9
-    plan = plan_slabs(jnp.asarray(coords), jnp.asarray(radii), gx, cc, sr)
-    assert bool(plan.ok)
-    rpw = next(x for x in RPW_LADDER if x >= int(plan.rows_rolled))
-    cap = len(expected) + 5
-    sp = slab_mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap,
-                        gx, cc, sr, rpw=rpw, interpret=True,
-                        emit_mode="sparse")
-    kn = slab_mask_fill(jnp.asarray(coords), jnp.asarray(radii), cap,
-                        gx, cc, sr, rpw=rpw, interpret=True,
-                        emit_mode="kernel")
-    assert int(sp[2]) == int(kn[2]) == len(expected)
-    assert bool(sp[3]) and bool(kn[3])
-    np.testing.assert_array_equal(np.asarray(sp[0]), np.asarray(kn[0]))
-    np.testing.assert_array_equal(np.asarray(sp[1]), np.asarray(kn[1]))
-    got = {(min(a, b), max(a, b))
-           for a, b in zip(np.asarray(kn[0])[:len(expected)],
-                           np.asarray(kn[1])[:len(expected)])}
-    assert got == expected

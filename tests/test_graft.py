@@ -1,24 +1,23 @@
 """Driver entry points: single-chip compile check + multi-chip dry run."""
 
+import os
 import sys
 
 import jax
-import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def test_entry_compiles_and_runs():
     import __graft_entry__ as g
 
     fn, args = g.entry()
-    slab_res, count_res, fill_res, bvh_res = jax.jit(fn)(*args)
+    count_res, fill_res, bvh_res = jax.jit(fn)(*args)
+    assert bool(count_res.ok) and bool(fill_res.ok)
     assert int(count_res.count) >= 0
     assert count_res.pairs is None
-    assert slab_res.pairs is None
     assert int(fill_res.count) == int(count_res.count)
-    assert int(slab_res.count) == int(count_res.count)
     for res in (fill_res, bvh_res):
         assert int(res.count) >= 0
         assert res.pairs.shape[1] == 2

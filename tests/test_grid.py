@@ -97,7 +97,7 @@ def test_collide_method_grid():
 
 
 def test_collide_grid_fill():
-    # Grid pair emission (Pallas halo kernel; interpreter off-TPU).
+    # Grid fills take the column engine's run-expansion emission.
     rng = np.random.RandomState(13)
     n = 200
     coords = rng.random((n, 3)).astype("float32")
@@ -153,10 +153,8 @@ def test_build_grid_ids_roundtrip():
 
 
 def test_collide_grid_fill_float64():
-    # float64 pair emission has no compiled grid path (ids ride in f32
-    # bitcast lanes); an explicit method="grid" fill request with f64
-    # coords must still return the exact pair set (routed to the BVH
-    # engine), not crash at trace time.
+    # An explicit method="grid" fill request with f64 coords returns the
+    # exact pair set at input precision (the run-expansion emission).
     rng = np.random.RandomState(7)
     n = 256
     coords = rng.random((n, 3)).astype("float64")

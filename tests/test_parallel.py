@@ -1,5 +1,5 @@
 """Multi-device sharded broad-phase: bit-parity with the single-device path
-on an 8-virtual-device CPU mesh (the TPU-mesh stand-in)."""
+on an 8-virtual-device CPU mesh (the multi-GPU stand-in)."""
 
 import jax
 import jax.numpy as jnp

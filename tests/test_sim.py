@@ -77,31 +77,30 @@ def test_simulate_final_pairs_grid_method():
 def test_simulate_final_fill_retries_to_exact(monkeypatch):
     """A clustering/heterogeneous end state must not leave the one
     result users read pairs from silently short: the capacity > 0 final
-    fill goes through the Collider-style exact-knob retry chain
-    (VERDICT r3 item 7)."""
-    from collision_tpu import Collider, interpret_kernels
+    fill goes through the Collider-style exact-knob retry chain."""
+    from collision_tpu import Collider
 
     calls = {"retried": False}
-    real_retry = Collider._retry_exact
+    real_exact = Collider._exact
 
     def rec(self, coords, radii, capacity):
-        calls["retried"] = True
-        return real_retry(self, coords, radii, capacity)
+        res = real_exact(self, coords, radii, capacity)
+        calls["retried"] = self.last_rung != "first"
+        return res
 
-    monkeypatch.setattr(Collider, "_retry_exact", rec)
+    monkeypatch.setattr(Collider, "_exact", rec)
 
-    # Power-law radii wide enough that the default-knob column fill
-    # reports ok=False (rows_rolled > default rpw) on the final scene.
+    # Power-law radii wide enough that the default candidate bound
+    # (max(2^17, 8 * capacity, 32n)) is too small on the final scene.
     rng = np.random.RandomState(21)
     n = 600
     coords = rng.random((n, 3)).astype("float32")
     velocities = np.zeros((n, 3), "float32")
     radii = (0.004 * (1 + rng.pareto(1.2, n))).clip(0, 0.5)\
         .astype("float32")
-    with interpret_kernels():
-        fc, fv, counts, pairs, ok = simulate(
-            jnp.asarray(coords), jnp.asarray(velocities),
-            jnp.asarray(radii), n_steps=1, capacity=65536)
+    fc, fv, counts, pairs, ok = simulate(
+        jnp.asarray(coords), jnp.asarray(velocities),
+        jnp.asarray(radii), n_steps=1, capacity=4096)
     expected = brute_force_collisions(np.asarray(fc), radii)
     assert calls["retried"], "final fill never hit the retry chain"
-    assert pair_array_to_set(pairs, min(len(expected), 65536)) == expected
+    assert pair_array_to_set(pairs, min(len(expected), 4096)) == expected

@@ -99,7 +99,7 @@ def test_no_pair_fill():
 
 
 def test_stack_overflow_detected():
-    # VERDICT r2 item 5: the reference silently overwrites its stack top
+    # The reference silently overwrites its stack top
     # at capacity (collision.cl:186-191); here the clipped push must be
     # *detected*. A dense random scene with stack_depth=2 forces clips
     # (ok=False); an ample depth completes clean (ok=True) with the exact
